@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                  # everything; what the last line reports
     python3 chip_smoke.py --kernels-only   # phases 1-3, K7 on seeded states, the kernels' timings; no result line
+    python3 chip_smoke.py --kernels-only --k7-baseline OLD.cu   # and K7 timed beside another source of it
 
 Phases, each printing its results (any failure raises, so the script exits
 non-zero before the last line):
@@ -122,9 +123,10 @@ non-zero before the last line):
    tests/test_actuated.py's trot bounds (300 ticks, B=64, f32 and B=4 f64)
    and tests/test_estimated_actuated.py's BasicKF bounds (300 ticks, B=64,
    f32) in every robot; then, with no worker running: K7 alone by CUDA
-   events around a replayed graph (B=64 and 4096, f32 and f64) beside its
-   bound, and one plain step at B=64; the CLI's `run_actuated` fleet (one
-   Go1 tiled, f32, N=10, 2 x 4, n_sub=80, 0.4 m/s) at B=64 and B=4096: p50 /
+   events around a replayed graph (B in {1, 64, 512, 4096, 16384}, f32 and
+   f64) beside its bound, and one plain step at B=64; the CLI's
+   `run_actuated` fleet (one Go1 tiled, f32, N=10, 2 x 4, n_sub=80, 0.4
+   m/s) at B=64 and B=4096: p50 /
    min / max of 10 ticks after 3 warm-ups, exactly 1 K7 and 8 K1 launches a
    tick; one plain-plant control period at B=64; a profile of one B=64 tick
    split between pre / solve / post; a tick of the actuated step and of the
@@ -133,12 +135,22 @@ non-zero before the last line):
 
 Then one JSON line describing each kernel, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+--kernels-only runs phases 1-3, K7 against the plain step and timed (on the
+mixed fleet's starting states), phase 12's kernel checks and the kernels'
+timings, and for K7 also: builds at 32, 64 and 128 lanes a block
+(-DK7_THREADS) and, with --k7-baseline, another source of the kernel with
+the same C interface (the previous design), timed in turns at B=64 and 4096,
+f32 and f64; and the clocks of each phase of a substep from a
+-DK7_PHASE_CLOCKS build at the same shapes. It prints no result line.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import ctypes
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -1847,7 +1859,13 @@ ACT_STATE_TICKS = 25  # the mixed trot that gives K7's check its states
 ACT_QUALITY_TICKS = 300
 ACT_TAIL = 150        # the ticks the JAX tests' bounds average over
 K7_CHECKED_B = (1, 7, 4096)
-K7_TIMED_B = (ACT_B, ACT_BIG_B)
+# K7 timed alone: from one scenario to four times the checked states (tiled),
+# where the latency of one scenario's chain gives way to the card's throughput
+K7_TIMED_B = (1, ACT_B, 512, ACT_BIG_B, 16384)
+# --kernels-only: the block sizes tried (lanes a block, -DK7_THREADS) and the
+# shapes at which they, a baseline source and the clock split are measured
+K7_BLOCK_SIZES = (32, 64, 128)
+K7_COMPARED_B = (ACT_B, ACT_BIG_B)
 # K7 against the plain step (its f64 run), over each leaf's scale. f64: two
 # formulations of M and c (closed forms against torch.func), 80 substeps.
 # f32: a stick / slip decision at the friction cone's edge may flip in f32
@@ -1975,7 +1993,8 @@ def phase_k7_vs_plain(device, states):
     torch.cuda.synchronize()
     print(f"[K7] plain steps f64 and f32 at B={b_max} on the card: "
           f"{time.perf_counter() - t0:.1f} s")
-    flipped = _scenario_err(plain[torch.float32], plain[torch.float64]) > K7_TOL[torch.float32]
+    plain_err = _scenario_err(plain[torch.float32], plain[torch.float64])
+    flipped = plain_err > K7_TOL[torch.float32]
     n_flipped = int(flipped.sum())
     _check(n_flipped <= K7_F32_FLIP_SHARE * b_max,
            f"K7: f32 leaves f64 in {n_flipped} of {b_max} scenarios of the plain step itself")
@@ -2009,8 +2028,23 @@ def phase_k7_vs_plain(device, states):
             _check(worst <= K7_TOL[dtype], f"{tag}: {line}")
             print(f"[K7] {tag} vs plain: {line}")
     print(f"[K7] the f32 plain step leaves the f64 one beyond {K7_TOL[torch.float32]} of scale "
-          f"in {n_flipped} of {b_max} scenarios (a stick / slip flip at the cone's edge)")
+          f"in {n_flipped} of {b_max} scenarios (a stick / slip flip at the cone's edge), "
+          f"elsewhere by at most {plain_err[~flipped].max().item():.3e}")
     return worst_abs[torch.float32], worst_abs[torch.float64], n_flipped
+
+
+def _k7_packed(states, b, dtype):
+    """K7's packed rows for b scenarios: the first b of the checked states,
+    tiled beyond their number."""
+    from quaternion_mpc_tpu_torch.kernels import articulated as k7
+
+    s, tg, ap, dt = states
+    n = min(b, K7_CHECKED_B[-1])
+    rows = k7.pack(*_rows((s, tg, ap), n, dtype), dt[:n].to(dtype))
+    if b > n:
+        idx = torch.arange(b, device=dt.device) % n
+        rows = tuple(r[idx].contiguous() for r in rows)
+    return rows
 
 
 def phase_k7_timing(device, states):
@@ -2024,13 +2058,13 @@ def phase_k7_timing(device, states):
     rows = {}
     for dtype in (torch.float32, torch.float64):
         for b in K7_TIMED_B:
-            inputs = _rows((s, tg, ap), b, dtype)
-            packed = k7.pack(*inputs, dt[:b].to(dtype))
+            packed = _k7_packed(states, b, dtype)
             ms = _graph_time(lambda: k7.launch(*packed, ACT_N_SUB), reps=20) * 1e3
             bound_ms, bound_by = _bound(k7.work(ACT_N_SUB, b, dtype), dtype)
             row = dict(ms=ms, bound_ms=bound_ms, bound_by=bound_by,
                        share_of_bound=bound_ms / ms)
             if (dtype, b) == (torch.float32, ACT_B):
+                inputs = _rows((s, tg, ap), b, dtype)
                 row["plain_ms"] = _sync_time(
                     lambda: art.step(*inputs, dt[:b].to(dtype), ACT_N_SUB, backend="plain"),
                     runs=2, warmup=1) * 1e3
@@ -2039,8 +2073,98 @@ def phase_k7_timing(device, states):
             plain = f", plain step {row['plain_ms']:.1f} ms" if "plain_ms" in row else ""
             print(f"[K7] articulated_step {tag}: {ms:.4f} ms a launch (graph of 20), bound "
                   f"{bound_ms:.5f} ms by {bound_by} ({100 * row['share_of_bound']:.3f}% of it; "
-                  f"{-(-b // k7.THREADS)} blocks of {k7.THREADS}){plain}")
+                  f"{-(-b // (k7.THREADS // 4))} blocks of {k7.THREADS} lanes){plain}")
     return rows
+
+
+def _k7_launcher(lib, packed):
+    """(run, out): run() launches ``lib``'s K7 entry on ``packed`` into out on
+    the current stream, uncounted."""
+    state, targets, params = packed
+    out = torch.empty_like(state)
+    fn = getattr(lib, f"articulated_step_{'f64' if state.dtype == torch.float64 else 'f32'}")
+
+    def run():
+        err = fn(state.data_ptr(), targets.data_ptr(), params.data_ptr(), out.data_ptr(),
+                 ACT_N_SUB, state.shape[0], torch.cuda.current_stream().cuda_stream)
+        _check(err == 0, f"K7 launch failed with CUDA error {err}")
+
+    return run, out
+
+
+def _rows_err(got, want):
+    """Largest |got − want| over the largest |want| (at least 1), K7's rows."""
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max().clamp(min=1.0)).item()
+
+
+def phase_k7_designs(states, baseline=None):
+    """--kernels-only: K7 built at each block size of K7_BLOCK_SIZES
+    (-DK7_THREADS), with nvcc's default fused multiply-add in place of its
+    FLAGS ("contracted") and, given ``baseline`` (another source of the
+    kernel with the same C interface: the previous design), that source,
+    timed in turns (forward, then backward) by events around a replayed
+    graph at K7_COMPARED_B, f32 and f64; each build's rows held against the
+    shipped kernel's (the block size changes no arithmetic; the contracted
+    build's and the baseline's differences are printed). Then the
+    -DK7_PHASE_CLOCKS build: the clocks of each phase of a substep, lane 0
+    of the middle block."""
+    from quaternion_mpc_tpu_torch.kernels import articulated as k7
+    from quaternion_mpc_tpu_torch.kernels import build as kbuild
+
+    builds = {f"threads={n}": lambda n=n: k7.build((f"-DK7_THREADS={n}",))
+              for n in K7_BLOCK_SIZES}
+    builds["contracted"] = lambda: kbuild.build(k7.SOURCE)
+    builds["clocks"] = lambda: k7.build(("-DK7_PHASE_CLOCKS",))
+    if baseline:  # as that design was built
+        builds["baseline"] = lambda: kbuild.build(pathlib.Path(baseline).resolve())
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        paths = dict(zip(builds, pool.map(lambda build: build(), builds.values())))
+    print(f"[K7] {len(paths)} more builds in {time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        for k in kbuild.ptxas_report(path):
+            print(f"[K7] ptxas {name} {k['name'][-30:]}: {k['registers']} registers, "
+                  f"{k['stack']} bytes stack, spill {k['stores']} / {k['loads']} bytes")
+    libs = {name: k7.bind(path) for name, path in paths.items()}
+    timed = [name for name in builds if name != "clocks"]
+    for dtype in (torch.float32, torch.float64):
+        for b in K7_COMPARED_B:
+            packed = _k7_packed(states, b, dtype)
+            want = k7.launch(*packed, ACT_N_SUB)
+            runs = {name: _k7_launcher(libs[name], packed) for name in timed}
+            times = {name: [] for name in timed}
+            for name in timed + timed[::-1]:
+                times[name].append(_graph_time(runs[name][0], reps=20) * 1e3)
+            bound_ms, _ = _bound(k7.work(ACT_N_SUB, b, dtype), dtype)
+            parts = []
+            for name in timed:
+                err = _rows_err(runs[name][1], want)
+                if name.startswith("threads="):
+                    _check(err <= K7_TOL[dtype], f"K7 {name} {dtype} B={b}: {err:.3e} from "
+                                                 f"the shipped build")
+                ms = times[name]
+                share = 100 * bound_ms / statistics.mean(ms)
+                parts.append(f"{name} {ms[0]:.4f} / {ms[1]:.4f} ms ({share:.3f}% of the bound; "
+                             f"{err:.1e} from the shipped build)")
+            print(f"[K7] designs {str(dtype)[6:]} B={b} n_sub={ACT_N_SUB}, in turns forward / "
+                  f"backward: " + "; ".join(parts))
+    clocks = libs["clocks"]
+    clocks.articulated_clocks.argtypes = [ctypes.c_void_p]
+    clocks.articulated_clocks.restype = ctypes.c_int
+    for dtype in (torch.float32, torch.float64):
+        for b in K7_COMPARED_B:
+            packed = _k7_packed(states, b, dtype)
+            run, out = _k7_launcher(clocks, packed)
+            run()
+            err = _rows_err(out, k7.launch(*packed, ACT_N_SUB))
+            _check(err <= K7_TOL[dtype], f"K7 clocks build {dtype} B={b}: {err:.3e} off")
+            got = np.zeros(len(k7.PHASES) + 1, dtype=np.int64)
+            _check(clocks.articulated_clocks(got.ctypes.data) == 0, "reading K7's clocks failed")
+            per = got[:-1] / ACT_N_SUB
+            print(f"[K7] clocks a substep {str(dtype)[6:]} B={b} (lane 0 of the middle block; two "
+                  f"stamps back to back {got[-1]}): {per.sum():.0f} in all: "
+                  + ", ".join(f"{name} {c:.0f}" for name, c in zip(k7.PHASES, per)))
 
 
 def _actuated_quality(device, dtype, batch, kf_type):
@@ -2255,12 +2379,14 @@ def phase_actuated(device, smi):
                              "actuated_cli_fleet_ticks_B64_B4096": k1_fleet})
 
 
-def phase_k7_kernels_only(device):
-    """--kernels-only: K7 against the plain step and timed, on the mixed
-    fleet's starting states (no trot) with the same perturbations."""
+def phase_k7_kernels_only(device, baseline):
+    """--kernels-only: K7 against the plain step, timed, and compared across
+    block sizes, with a baseline source and by phase, on the mixed fleet's
+    starting states (no trot) with the same perturbations."""
     states, _ = _k7_states(device, 0)
     phase_k7_vs_plain(device, states)
     phase_k7_timing(device, states)
+    phase_k7_designs(states, baseline)
 
 
 
@@ -2292,11 +2418,13 @@ def _print_ptxas(kbuild, rs, k4, libs):
 
 def main(argv) -> int:
     t_start = time.perf_counter()
-    kernels_only = argv == ["--kernels-only"]
+    kernels_only = argv[:1] == ["--kernels-only"] and (
+        len(argv) == 1 or (len(argv) == 3 and argv[1] == "--k7-baseline"))
+    baseline = argv[2] if kernels_only and len(argv) == 3 else None
     workers = {**WORKERS, **ACT_WORKERS}
     worker = argv[1] if len(argv) == 2 and argv[0] == "--worker" and argv[1] in workers else None
     if argv and not (kernels_only or worker):
-        print("usage: chip_smoke.py [--kernels-only | --worker "
+        print("usage: chip_smoke.py [--kernels-only [--k7-baseline SOURCE] | --worker "
               f"{{{','.join(workers)}}}]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -2340,7 +2468,7 @@ def main(argv) -> int:
     worst_f32 = phase_kernel_vs_plain(device)                  # 3
     worst_f32_scan, worst_f32_fused = phase_scan_vs_plain(device)
     if kernels_only:
-        phase_k7_kernels_only(device)
+        phase_k7_kernels_only(device, baseline)
         phase_small_kernel_vs_plain(device)
         phase_cross_term_vs_plain(device)
         phase_sweep_timing(device)
@@ -2483,6 +2611,9 @@ def main(argv) -> int:
         "route": "cuda",
         "source": "quaternion_mpc_tpu_torch/csrc/articulated.cu",
         "replaces": "quaternion_mpc_tpu/sim/articulated.py:283",
+        "design": (f"a lane per leg, four lanes a scenario, {k7.THREADS} lanes a block; the "
+                   "torso's sums over the legs by __shfl_xor_sync, the torso updated in every "
+                   "lane; the parameters staged in shared memory once a launch"),
         # the actuated ticks of phase 13, each run driven with the count set
         # to 0 just before and read just after (exactly one a tick)
         "launches": sum(act["k7_launches"].values()),

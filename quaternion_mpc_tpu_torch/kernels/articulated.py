@@ -7,20 +7,22 @@ friction, clamped PD torques, the leg chains' dynamics, the torso SRB and the
 semi-implicit integration). Eager PyTorch runs each substep as thousands
 of launches; the kernel runs the whole period in one.
 
-What bounds it on the H100: operations, about `FLOPS_PER_SUBSTEP` a
-scenario and substep (`work`), against a few hundred values read and written
-once a scenario. One scenario is a serial chain of n_sub substeps, though, and
-at the CLI's B = 64 the launch fills two of the 132 SMs: latency, not the
-bound, sets its time.
+What bounds it on the H100: operations, `FLOPS_PER_SUBSTEP` a scenario and
+substep (`work`), against a few hundred values read and written once a
+scenario. One scenario is a serial chain of n_sub substeps, though, and the
+CLI's B = 64 is a few warps on a card of 132 SMs: latency, not the bound,
+sets its time.
 
-Design (csrc/articulated.cu): one thread a scenario, 32 a block; the 49
-state values stay in shared memory for the whole loop, a column a thread,
-beside the leg dynamics' scratch; a substep visits the legs one after the
-other, so that one leg's working set fits the registers; targets and
-parameters are read through the read-only path where they are used. M(q)
-and c(q, q̇) of each leg are computed in closed form (composite inertias;
-Newton-Euler at q̈ = 0), where the plain version differentiates the leg
-Lagrangian with torch.func, so the two check each other.
+Design (csrc/articulated.cu): a lane per leg, four lanes a scenario, THREADS
+lanes a block. Each lane keeps its leg's state and targets and the torso's
+state in registers for the whole loop and computes its leg alone (foot
+kinematics, contact, torque, M and c, the 3x3 solve, the step); the torso's
+sums over the legs are a butterfly of `__shfl_xor_sync` that leaves the same
+bits in the four lanes, and each lane updates the torso itself. The block's
+parameter rows are staged into shared memory once a launch. M(q) and c(q, q̇)
+of each leg are computed in closed form (composite inertias; Newton-Euler at
+q̈ = 0), where the plain version differentiates the leg Lagrangian with
+torch.func, so the two check each other.
 
 The wrapper packs each scenario into three rows (`STATE`, `TARGETS`,
 `PARAMS` values; `pack`) and reads the new state back as views of the
@@ -48,23 +50,39 @@ from quaternion_mpc_tpu_torch.sim import plant as _plant
 SOURCE = _build.CSRC / "articulated.cu"
 _ENTRY = {torch.float32: "articulated_step_f32", torch.float64: "articulated_step_f64"}
 STATE, TARGETS, PARAMS = 49, 36, 231
-THREADS = 32
+THREADS = 64  # lanes a block (csrc/articulated.cu K7_THREADS): 16 scenarios
+# The phases of a substep, in the order the device code stamps them
+# (K7_STAMP; the -DK7_PHASE_CLOCKS build sums each one's clocks).
+PHASES = ("attitude", "contact", "dynamics", "sums", "torso")
 # Floating-point operations of one substep of one scenario in the device
 # code: each add, subtract, multiply, divide, comparison-free min / max,
-# square root, sine, cosine, exponential and floor counted once
+# square root, sine, cosine, exponential and floor counted once; the torso's
+# attitude and update once (every lane of the scenario repeats them), each
+# leg once, and the sums over the legs as 3 adds a value
 # (tests/test_torch_articulated_emulation.py counts them by running the
 # device code on a counting number type).
-FLOPS_PER_SUBSTEP = 6808
+FLOPS_PER_SUBSTEP = 5922
 
 
-def build():
-    """Compile the kernel (kernels.build); returns the library's path."""
-    return _build.build(SOURCE)
+# No fused multiply-add: each operation rounds as the plain version's do, so
+# that in f32 the kernel's stick / slip decisions at the friction cone's edge
+# fall where the plain step's fall (contracted, its f32 run left the f64 plain
+# step by 1.8e-2 of scale in a perturbed scenario where the f32 plain step
+# stays within 1e-3; PERF.md).
+FLAGS = ("-fmad=false",)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+def build(extra_flags=()):
+    """Compile the kernel (kernels.build) with FLAGS and ``extra_flags``;
+    returns the library's path."""
+    return _build.build(SOURCE, FLAGS + tuple(extra_flags))
+
+
+def bind(path) -> ctypes.CDLL:
+    """A build of the kernel (this source with other flags, or another source
+    with the same C interface) loaded, its entries' argument types set and
+    its row widths checked against the wrapper's."""
+    lib = ctypes.CDLL(str(path))
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -73,10 +91,15 @@ def _lib() -> ctypes.CDLL:
     lib.articulated_widths(widths)
     if tuple(widths) != (STATE, TARGETS, PARAMS):
         raise RuntimeError(
-            f"csrc/articulated.cu packs {tuple(widths)} values, the wrapper "
+            f"{path} packs {tuple(widths)} values, the wrapper "
             f"{(STATE, TARGETS, PARAMS)}"
         )
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return bind(build())
 
 
 def work(n_sub: int, B: int, dtype) -> dict:

@@ -4,8 +4,11 @@ packed rows (`kernels.articulated.pack` / `unpack`, the card's path), held
 against the plain step (`sim.articulated.step(..., backend="plain")`, the
 leg dynamics by torch.func where the kernel has closed forms) on seeded
 states over flat, slope and stairs, with and without an external wrench,
-joint gains (3,) and (4, 3), B in {1, 7, 33} (one warp, a ragged block,
-two blocks).
+joint gains (3,) and (4, 3), B in {1, 7, 9, 33} and one B over a full
+block and a part of a second (`B_RAGGED`): four lanes a scenario, so the
+lanes past the last scenario compute on a clamped index and take part in
+every shuffle; one that returned early would leave its group's shuffles
+waiting, which the emulation reports.
 
 f64 agrees to 1e-9 of each leaf's scale after 80 substeps. f32 is held
 against the f64 plain step on the same inputs to 1e-3 of scale (80
@@ -18,8 +21,10 @@ velocities); there the kernel is held to the f32 plain step, to the same
 1e-3, and such scenarios must stay rare.
 
 The same device code, built on a number type that counts its operations,
-gives `kernels.articulated.FLOPS_PER_SUBSTEP` (the kernel's bound). Needs a
-host C++17 compiler (g++); without one the tests skip."""
+gives `kernels.articulated.FLOPS_PER_SUBSTEP` (the kernel's bound): the
+kernel's phase stamps (`K7_STAMP`) split each lane's operations by phase, and
+one scenario's substep is counted with the torso once and each leg once.
+Needs a host C++17 compiler (g++); without one the tests skip."""
 
 import ctypes
 import pathlib
@@ -50,16 +55,18 @@ torch.set_num_threads(1)
 HERE = pathlib.Path(__file__).resolve().parent
 F64 = torch.float64
 N_SUB = 80
-B_MAX = 33
+B_RAGGED = k7.THREADS // 4 + 3  # a full block and three scenarios of a second
+B_MAX = max(33, B_RAGGED)
 TOL = {torch.float64: 1e-9, torch.float32: 1e-3}
 
 _HARNESS = r"""
 #include "cuda_emulation.h"
 
-// A number that counts the floating-point operations done on it: each add,
-// subtract, multiply, divide, min, max, square root, sine, cosine,
-// exponential and floor once; negation and comparison not at all.
-static long long flops = 0;
+// A number that counts the floating-point operations done on it, in the
+// counter of the (emulated) thread that does them: each add, subtract,
+// multiply, divide, min, max, square root, sine, cosine, exponential and floor
+// once; negation and comparison not at all.
+static long long flops[1024];
 struct Counted {
   double v;
   Counted() = default;
@@ -72,28 +79,45 @@ inline Counted counted(double v) {
   c.v = v;
   return c;
 }
-inline Counted operator+(Counted a, Counted b) { ++flops; return counted(a.v + b.v); }
-inline Counted operator-(Counted a, Counted b) { ++flops; return counted(a.v - b.v); }
-inline Counted operator*(Counted a, Counted b) { ++flops; return counted(a.v * b.v); }
-inline Counted operator/(Counted a, Counted b) { ++flops; return counted(a.v / b.v); }
+inline void tick() { ++flops[threadIdx.x]; }
+inline Counted operator+(Counted a, Counted b) { tick(); return counted(a.v + b.v); }
+inline Counted operator-(Counted a, Counted b) { tick(); return counted(a.v - b.v); }
+inline Counted operator*(Counted a, Counted b) { tick(); return counted(a.v * b.v); }
+inline Counted operator/(Counted a, Counted b) { tick(); return counted(a.v / b.v); }
 inline Counted operator-(Counted a) { return counted(-a.v); }
 inline bool operator>(Counted a, Counted b) { return a.v > b.v; }
 inline bool operator<(Counted a, Counted b) { return a.v < b.v; }
 inline bool operator>=(Counted a, Counted b) { return a.v >= b.v; }
-inline Counted k_sin(Counted a) { ++flops; return counted(std::sin(a.v)); }
-inline Counted k_cos(Counted a) { ++flops; return counted(std::cos(a.v)); }
-inline Counted k_sqrt(Counted a) { ++flops; return counted(std::sqrt(a.v)); }
-inline Counted k_exp(Counted a) { ++flops; return counted(std::exp(a.v)); }
-inline Counted k_floor(Counted a) { ++flops; return counted(std::floor(a.v)); }
-inline Counted k_min(Counted a, Counted b) { ++flops; return a.v < b.v ? a : b; }
-inline Counted k_max(Counted a, Counted b) { ++flops; return a.v > b.v ? a : b; }
+inline void k_sincos(Counted a, Counted& s, Counted& c) {
+  flops[threadIdx.x] += 2;
+  s = counted(std::sin(a.v));
+  c = counted(std::cos(a.v));
+}
+inline Counted k_sqrt(Counted a) { tick(); return counted(std::sqrt(a.v)); }
+inline Counted k_exp(Counted a) { tick(); return counted(std::exp(a.v)); }
+inline Counted k_floor(Counted a) { tick(); return counted(std::floor(a.v)); }
+inline Counted k_min(Counted a, Counted b) { tick(); return a.v < b.v ? a : b; }
+inline Counted k_max(Counted a, Counted b) { tick(); return a.v > b.v ? a : b; }
+// A shuffle moves the value, not its count (the emulation's exchange holds doubles).
+inline Counted __shfl_xor_sync(unsigned mask, Counted value, int lane_mask) {
+  return counted(__shfl_xor_sync(mask, value.v, lane_mask));
+}
+
+// K7_STAMP(phase, values...): the operations since the thread's previous
+// stamp go to that phase.
+static long long stamped[1024], by_phase[1024][8];
+#define K7_STAMP(phase, ...)                                              \
+  do {                                                                    \
+    by_phase[threadIdx.x][phase] += flops[threadIdx.x] - stamped[threadIdx.x]; \
+    stamped[threadIdx.x] = flops[threadIdx.x];                            \
+  } while (0)
 
 #include "articulated.cu"
 
 template <typename T>
 static int run(const T* s, const T* t, const T* p, T* o, int n_sub, int B) {
-  return emulate_blocks((B + THREADS - 1) / THREADS, THREADS, articulated_kernel<T>, s, t, p, o,
-                        n_sub, B);
+  return emulate_blocks((B + SCENARIOS - 1) / SCENARIOS, THREADS, articulated_kernel<T>, s, t, p,
+                        o, n_sub, B);
 }
 extern "C" int step_f32(const float* s, const float* t, const float* p, float* o, int n_sub,
                         int B) {
@@ -103,15 +127,22 @@ extern "C" int step_f64(const double* s, const double* t, const double* p, doubl
                         int n_sub, int B) {
   return run<double>(s, t, p, o, n_sub, B);
 }
-// The operations of n_sub substeps of one scenario.
-extern "C" long long count_flops(const double* s, const double* t, const double* p, int n_sub) {
+extern "C" int block_threads() { return THREADS; }
+// The operations of n_sub substeps of one scenario (B = 1), by lane (the
+// scenario's four, then the idle ones) and phase: out[lane * PHASES + phase].
+extern "C" int count_flops(const double* s, const double* t, const double* p, int n_sub,
+                           long long* out) {
   std::vector<Counted> cs(STATE), ct(TARGETS), cp(PARAMS), co(STATE);
   for (int i = 0; i < STATE; ++i) cs[i] = Counted(s[i]);
   for (int i = 0; i < TARGETS; ++i) ct[i] = Counted(t[i]);
   for (int i = 0; i < PARAMS; ++i) cp[i] = Counted(p[i]);
-  flops = 0;
-  if (run<Counted>(cs.data(), ct.data(), cp.data(), co.data(), n_sub, 1) != 0) return -1;
-  return flops;
+  std::memset(flops, 0, sizeof(flops));
+  std::memset(stamped, 0, sizeof(stamped));
+  std::memset(by_phase, 0, sizeof(by_phase));
+  if (run<Counted>(cs.data(), ct.data(), cp.data(), co.data(), n_sub, 1) != 0) return 1;
+  for (int lane = 0; lane < THREADS; ++lane)
+    for (int phase = 0; phase < PHASES; ++phase) out[lane * PHASES + phase] = by_phase[lane][phase];
+  return 0;
 }
 """
 
@@ -133,8 +164,9 @@ def emulated(tmp_path_factory):
     for name in ("step_f32", "step_f64"):
         getattr(lib, name).argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int]
         getattr(lib, name).restype = ctypes.c_int
-    lib.count_flops.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int]
-    lib.count_flops.restype = ctypes.c_longlong
+    lib.count_flops.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    lib.count_flops.restype = ctypes.c_int
+    lib.block_threads.restype = ctypes.c_int
     lib.articulated_widths.argtypes = [ctypes.c_void_p]
     return lib
 
@@ -228,7 +260,7 @@ def _close(got, want, tol):
         assert err <= tol * scale, (err, scale, tuple(w.shape))
 
 
-@pytest.mark.parametrize("batch", [1, 7, B_MAX])
+@pytest.mark.parametrize("batch", [1, 7, 9, 33, B_RAGGED])
 @pytest.mark.parametrize("kp_per_leg", [False, True], ids=["kp3", "kp4x3"])
 @pytest.mark.parametrize("push", [False, True], ids=["free", "push"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
@@ -261,21 +293,41 @@ def test_emulated_kernel_takes_shared_parameters_and_one_robot(emulated):
     _close(got, want, 1e-11)
 
 
+def _flops_by_phase(lib, rows, n_sub):
+    """One scenario's operations over n_sub substeps, (lanes, phases)."""
+    out = np.zeros((k7.THREADS, len(k7.PHASES)), dtype=np.int64)
+    assert lib.count_flops(*(r.data_ptr() for r in rows), n_sub, out.ctypes.data) == 0
+    return out
+
+
 def test_flop_count_matches_the_device_code(emulated):
-    """`FLOPS_PER_SUBSTEP` is what the device code does a substep, the same
-    in and out of contact (the branches are selects)."""
+    """`FLOPS_PER_SUBSTEP` is what the device code does in one scenario's
+    substep, the same in and out of contact (the branches are selects): the
+    attitude and the torso's update of one lane (every lane of the scenario
+    repeats them), each of the four lanes' leg (kinematics and contact, leg
+    dynamics), and the sums over the legs as a sum of four terms, 3 adds a
+    value (the butterfly does 2 in each lane)."""
     widths = (ctypes.c_int * 3)()
     emulated.articulated_widths(widths)
     assert tuple(widths) == (k7.STATE, k7.TARGETS, k7.PARAMS)
+    assert emulated.block_threads() == k7.THREADS
+    ph = {name: i for i, name in enumerate(k7.PHASES)}
     s, tg, ap, dt_ctrl, ext = _case(19, True, True)
     state, targets, params = k7.pack(s, tg, ap, dt_ctrl, ext)
     lifted = state.clone()
     lifted[:, 2] += 1.0  # every foot in the air
     for rows in (state, lifted):
         for i in range(3):
-            args = (rows[i].data_ptr(), targets[i].data_ptr(), params[i].data_ptr())
-            per_substep = emulated.count_flops(*args, 2) - emulated.count_flops(*args, 1)
-            assert per_substep == k7.FLOPS_PER_SUBSTEP
+            scenario = (rows[i], targets[i], params[i])
+            per = _flops_by_phase(emulated, scenario, 2) - _flops_by_phase(emulated, scenario, 1)
+            legs, idle = per[:4], per[4:]
+            # every lane repeats the torso and does one leg; the idle lanes compute too
+            assert (legs == legs[0]).all() and (idle == legs[0]).all()
+            values = 6  # Σ f_body and Σ foot x f_body
+            assert legs[0, ph["sums"]] == values * 2  # the butterfly: offsets 1 and 2
+            count = (legs[0, ph["attitude"]] + legs[:, ph["contact"]].sum()
+                     + legs[:, ph["dynamics"]].sum() + values * 3 + legs[0, ph["torso"]])
+            assert count == k7.FLOPS_PER_SUBSTEP
     work = k7.work(N_SUB, 64, torch.float32)
     assert work["flops"] == k7.FLOPS_PER_SUBSTEP * N_SUB * 64
     assert work["bytes"] == 64 * 4 * (2 * 49 + 36 + 231)
