@@ -3,6 +3,7 @@
     python3 chip_smoke.py                  # everything; what the last line reports
     python3 chip_smoke.py --kernels-only   # phases 1-3 (K2 too), K7 on seeded states, the kernels' timings; no result line
     python3 chip_smoke.py --kernels-only --k7-baseline OLD.cu   # and K7 timed beside another source of it
+    python3 chip_smoke.py --kernels-only --k2-baseline OLD.cu   # and K2 held bit for bit and timed beside another
     python3 chip_smoke.py --hardware-only  # phases 1-2, 14 and 15: the hardware loop, the fleet over ranks, the CLI; no result line
 
 Phases, each printing its results (any failure raises, so the script exits
@@ -13,7 +14,7 @@ non-zero before the last line):
 2. build: compiles the CUDA kernels from `quaternion_mpc_tpu_torch/csrc/`,
    one nvcc per source, all at once, and prints what ptxas reports of each
    (registers, stack, spills); K1 must not spill, nor K4 in f32, nor K7 in
-   f32 or f64; K2's eight instantiations are reported;
+   f32 or f64, nor K2's sixteen instantiations;
 3. kernel vs plain: K1 (`riccati_sweep`) against `riccati_sweep_ref` on the
    Go1 fleet's real expansions, f32 and f64, N in {10, 20}, B in {1, 7, 1000,
    4096, 16385} (one warp, a ragged single tile, a ragged last tile, full
@@ -215,7 +216,12 @@ the kernels' timings, and for K7 also: builds at 32, 64 and 128 lanes a block
 (-DK7_THREADS) and, with --k7-baseline, another source of the kernel with
 the same C interface (the previous design), timed in turns at B=64 and 4096,
 f32 and f64; and the clocks of each phase of a substep from a
--DK7_PHASE_CLOCKS build at the same shapes. It prints no result line.
+-DK7_PHASE_CLOCKS build at the same shapes. For K2 also (phase_k2_designs):
+its build options and, with --k2-baseline, another source of it with the
+same C interface (the previous design), held bit for bit against the shipped
+build and timed in turns; its launch plans swept; the wrapper's host time by
+part; and the clocks of each pass from a -DK2_PHASE_CLOCKS build. It prints
+no result line.
 """
 
 from __future__ import annotations
@@ -681,6 +687,188 @@ def phase_line_search_timing(device):
               f"{host_ms:.4f} ms a call), bound {bound_ms:.5f} ms by {bound_by} "
               f"({100 * bound_ms / ms:.2f}% of it reached), plain {plain_ms:.3f} ms")
     return by_shape
+
+
+# --kernels-only: other builds of K2 (the same source with a build option,
+# and with --k2-baseline another source with the same C interface), held bit
+# for bit against the shipped build at K2_CHECKED's shapes and the hard case
+# and timed in turns with it at K2_TIMED's and K2_DESIGN_SHAPES' shapes; the
+# launch plans swept at both; then the clocks of each pass. K2_DESIGN_SHAPES
+# lie between K2_TIMED's batch sizes, where the plans change.
+K2_DESIGN_SHAPES = tuple((torch.float32, "standing", n, k, b)
+                         for n, k, bs in ((HORIZON, 8, (1, 16, 64, 256, 1024, 2048)),
+                                          (6, 12, (16, 64, 256, 1024)), (HORIZON, 12, (4096,)))
+                         for b in bs)
+K2_VARIANTS = {"trajectories in device memory": ("-DK2_TRAJ_IN_DEVICE_MEMORY",),
+               "plans": ("-DK2_PLAN_OVERRIDE",)}
+# the plans swept: (scenarios a block S, lanes an alpha P)
+K2_PLANS = tuple((S, P) for P in (1, 2) for S in (1, 2, 4, 8, 16, 32, 64))
+# -DK2_PHASE_CLOCKS: what each stamp of thread 0 of the middle block ends
+# (csrc/line_search.cu): the prologue, the pricing, the wait for knot 0; per
+# knot the copies of the next one, the rollout and (after the first) the wait
+# at the knot's barrier; then the wait for knot N, the terminal cost, the
+# select, the barrier before the write and the write.
+K2_PASSES = ("start the constants' and knot 0's copies, model", "pricing", "wait for knot 0",
+             "start the next knot's copies", "rollout of a knot", "wait at a knot's barrier",
+             "wait for knot N", "terminal cost", "select", "barrier", "write xs, us")
+
+
+def _k2_differ(got, want):
+    """(elements whose bits differ, NaN matching NaN of any sign or payload;
+    the largest |difference| of the finite ones) over the line search's
+    outputs."""
+    differ, worst = 0, 0.0
+    for g, w in zip(got, want):
+        if g is None:
+            continue
+        if g.dtype == torch.bool:
+            differ += int((g != w).sum())
+            continue
+        bits = torch.int32 if g.dtype == torch.float32 else torch.int64
+        nan = torch.isnan(g) & torch.isnan(w)
+        differ += int(((g.view(bits) != w.view(bits)) & ~nan).sum())
+        finite = torch.isfinite(g) & torch.isfinite(w)
+        if bool(finite.any()):
+            worst = max(worst, float((g - w)[finite].abs().max()))
+    return differ, worst
+
+
+def _k2_clock_split(stamps, N):
+    """Clocks of each of K2_PASSES from one launch's 3N + 9 stamps."""
+    d = np.diff(stamps[1:3 * N + 9])
+    knots = d[3:3 + 3 * N - 1]  # stage 0, rollout 0, then (wait, stage, rollout) a knot
+    waits = knots[2::3]
+    return dict(zip(K2_PASSES, (d[0], d[1], d[2], knots[0::3].sum(), knots[1::3].sum(),
+                                waits.sum(), *d[3 + 3 * N - 1:]))), int(stamps[1] - stamps[0])
+
+
+def phase_k2_designs(device, baseline=None):
+    """--kernels-only: K2 built with each of K2_VARIANTS and, given
+    ``baseline``, that source (as it was built: K2's FLAGS), each held bit
+    for bit against the shipped build (every output, f32 and f64, J given and
+    priced, at K2_CHECKED's shapes and the hard case; NaN matches NaN of any
+    sign) and timed in turns with it (shipped, the others, then back) by
+    events around a replayed graph at K2_TIMED's and K2_DESIGN_SHAPES'
+    shapes. The variants must agree exactly (they move work, not
+    arithmetic); the baseline's count of differing elements is printed and
+    held to 0 too. Then every launch plan of K2_PLANS (scenarios a block,
+    lanes an alpha) that a shape can take, timed in turns through the
+    -DK2_PLAN_OVERRIDE build, beside the one the kernel chooses; the
+    wrapper's host time by part; and the -DK2_PHASE_CLOCKS build: the clocks
+    of each pass (K2_PASSES), thread 0 of the middle block, J given and
+    priced."""
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.kernels import build as kbuild
+    from quaternion_mpc_tpu_torch.kernels import line_search as k2
+
+    builds = {name: lambda flags=flags: kbuild.build(k2.SOURCE, k2.FLAGS + flags)
+              for name, flags in K2_VARIANTS.items()}
+    builds["clocks"] = lambda: kbuild.build(k2.SOURCE, k2.FLAGS + ("-DK2_PHASE_CLOCKS",))
+    if baseline:
+        builds["baseline"] = lambda: kbuild.build(pathlib.Path(baseline).resolve(), k2.FLAGS)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        paths = dict(zip(builds, pool.map(lambda build: build(), builds.values())))
+    print(f"[K2] {len(paths)} more builds in {time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        for k in kbuild.ptxas_report(path):
+            print(f"[K2] ptxas {name} {k['name'][-24:]}: {k['registers']} registers, "
+                  f"{k['stack']} bytes stack, spill {k['stores']} / {k['loads']} bytes")
+    libs = {"shipped": k2._lib(), **{name: k2.bind(path) for name, path in paths.items()}}
+    others = [name for name in libs if name != "shipped"]
+
+    cases = []
+    for dtype in (torch.float32, torch.float64):
+        for name, horizon, n_alphas, batches in K2_CHECKED:
+            cases += [(f"{str(dtype)[6:]} {name} N={horizon} K={n_alphas} B={batch}",
+                       examples.line_search_case(name, batch, dtype, device, horizon, n_alphas))
+                      for batch in batches]
+        cases.append((f"{str(dtype)[6:]} hard case", _k2_hard_case(dtype, device)))
+    differ = {name: [0, 0.0, 0] for name in others}
+    for tag, (spec, prob, kw) in cases:
+        for given in (True, False):
+            kw_run = kw if given else {**kw, "J": None}
+            want = k2.launch(libs["shipped"], spec, prob, **kw_run, with_costs=True)
+            for name in others:
+                n, worst = _k2_differ(k2.launch(libs[name], spec, prob, **kw_run,
+                                                with_costs=True), want)
+                d = differ[name]
+                d[0], d[1], d[2] = d[0] + n, max(d[1], worst), d[2] + (n > 0)
+    torch.cuda.synchronize()
+    for name, (n, worst, cases_off) in differ.items():
+        print(f"[K2] bits: {name} against the shipped build over {2 * len(cases)} launches (every "
+              f"output; K2_CHECKED's shapes and the hard case, f32 and f64, J given and priced): "
+              f"{n} elements differ in {cases_off} launches, largest |difference| {worst:.3e}")
+    _check(all(n == 0 for n, _, _ in differ.values()),
+           f"K2: a build's outputs differ from the shipped build's: {differ}")
+
+    timed = ["shipped", *(name for name in others if name != "clocks")]
+    for dtype, name, horizon, n_alphas, batch in K2_TIMED + K2_DESIGN_SHAPES:
+        spec, prob, kw = examples.line_search_case(name, batch, dtype, device, horizon, n_alphas)
+        times = {name: [] for name in timed}
+        for lib_name in timed + timed[::-1]:
+            lib = libs[lib_name]
+            times[lib_name].append(_graph_time(
+                lambda: k2.launch(lib, spec, prob, **kw, with_costs=False), reps=50) * 1e3)
+        n_feet, nc = prob.params.foot_pos.shape[0], prob.Cu.shape[0]
+        bound_ms, _ = _bound(k2.work(horizon, batch, n_alphas, n_feet, nc, dtype), dtype)
+        print(f"[K2] designs {_shape_tag(dtype, horizon, batch)} K={n_alphas}, in turns forward / "
+              f"backward (bound {bound_ms:.5f} ms): " + "; ".join(
+                  f"{lib_name} {times[lib_name][0]:.4f} / {times[lib_name][1]:.4f} ms "
+                  f"({100 * bound_ms / statistics.mean(times[lib_name]):.2f}% of the bound)"
+                  for lib_name in timed))
+
+    # the plans: every (S, P) that a launch of the shape can take, in turns
+    lib = libs["plans"]
+    lib.line_search_override.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.line_search_override.restype = None
+    for dtype, name, horizon, n_alphas, batch in K2_TIMED + K2_DESIGN_SHAPES:
+        spec, prob, kw = examples.line_search_case(name, batch, dtype, device, horizon, n_alphas)
+        lanes = k2.group_lanes(n_alphas)
+        most = 256
+        plans = [(S, P) for S, P in K2_PLANS if (P == 1 or lanes <= 16)
+                 and 32 <= S * lanes * P <= most and (S < 2 * batch or S * lanes * P == 32)]
+        times = {plan: [] for plan in plans}
+        for plan in plans + plans[::-1]:
+            lib.line_search_override(*plan)
+            times[plan].append(_graph_time(
+                lambda: k2.launch(lib, spec, prob, **kw, with_costs=False), reps=20) * 1e3)
+        lib.line_search_override(0, 0)
+        best = min(plans, key=lambda plan: statistics.mean(times[plan]))
+        print(f"[K2] plans {_shape_tag(dtype, horizon, batch)} K={n_alphas} (S scenarios a "
+              f"block, P lanes an alpha; ms, in turns forward / backward): " + "; ".join(
+                  f"S={S} P={P} {times[(S, P)][0]:.4f} / {times[(S, P)][1]:.4f}"
+                  for S, P in plans) + f"; fastest S={best[0]} P={best[1]}")
+
+    # the wrapper's host time a call, by part, at the fleet's shape
+    dtype, name, horizon, n_alphas, batch = K2_TIMED[0]
+    spec, prob, kw = examples.line_search_case(name, batch, dtype, device, horizon, n_alphas)
+    table, extras, dims = k2.check_inputs(spec, prob, **kw)
+    outputs, scratch = k2.new_outputs(*dims[:4], kw["xs"], False)
+    parts = {
+        "check_inputs": lambda: k2.check_inputs(spec, prob, **kw),
+        "new_outputs": lambda: k2.new_outputs(*dims[:4], kw["xs"], False),
+        "c_tables": lambda: k2.c_tables(table, (*extras, scratch), outputs),
+        "line_search": lambda: k2.line_search(spec, prob, **kw),
+    }
+    print(f"[K2] the wrapper's host time a call at {K2_MAIN}: " + ", ".join(
+        f"{part} {_enqueue_time(fn) * 1e3:.4f} ms" for part, fn in parts.items()))
+
+    lib = libs["clocks"]
+    lib.line_search_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.line_search_clocks.restype = ctypes.c_int
+    for dtype, name, horizon, n_alphas, batch in K2_TIMED:
+        spec, prob, kw = examples.line_search_case(name, batch, dtype, device, horizon, n_alphas)
+        for given in (True, False):
+            k2.launch(lib, spec, prob, **(kw if given else {**kw, "J": None}), with_costs=False)
+            stamps = np.zeros(3 * horizon + 9, dtype=np.int64)
+            _check(lib.line_search_clocks(stamps.ctypes.data, len(stamps)) == 0,
+                   "reading K2's clocks failed")
+            split, stamp = _k2_clock_split(stamps, horizon)
+            print(f"[K2] clocks {_shape_tag(dtype, horizon, batch)} K={n_alphas} "
+                  f"{'J given' if given else 'J priced'} (thread 0 of the middle block; two stamps "
+                  f"back to back {stamp}): {int(sum(split.values()))} in all: "
+                  + ", ".join(f"{p} {int(c)}" for p, c in split.items()))
 
 
 def phase_main_path(device):
@@ -3344,16 +3532,18 @@ def phase_hw_fresh_walks():
     and its KF error under 0.05 m, and each survivor walked more than 0.1 m
     (held). The JAX test also needs at least 3 of 4 upright: that count is
     printed beside its bound with each run's latency and overruns, not held
-    (ROADMAP queue 3: with the command 5.4-7.5 ms after its sensors most
-    walks stand, but a host that stalls the loop's threads still fells
-    some, and 2 of 4 stood in a run on such a host). Then the pool walk at
+    (ROADMAP queue 3: the JAX package's own walk, in fresh processes on a
+    CPU, falls about as often as the port's, most of its falls with tens of
+    MPC overruns; a host that stalls the loop's threads fells walks of
+    both). Then the pool walk at
     100 Hz asked (test_pool_pipeline_walk_100hz) in one more, held to its
     rate and its publishing (at least 90% of the ticks, less 10)."""
     runs = [_fresh("hardware-walk-three-tier") for _ in range(HW_THREE_TIER_RUNS)]
     sums = [r["summary"] for r in runs]
     survivors = [s for s in sums if s["upright"]]
     print(f"[hardware] three-tier walks: {len(survivors)} of {HW_THREE_TIER_RUNS} upright (the "
-          f"JAX test's bound: >= 3; printed, not held: open in ROADMAP queue 3); final heights "
+          f"JAX test's bound: >= 3; printed, not held: the JAX package's walk falls as often, "
+          f"ROADMAP queue 3); final heights "
           f"{[round(s['final_height'], 4) for s in sums]}, command latency (tick_wall_ms) "
           f"{[round(s['tick_wall_ms'], 2) for s in sums]}, MPC / servo / estimator overruns "
           f"{[(s['mpc_overruns'], s['servo_overruns'], s['est_overruns']) for s in sums]}",
@@ -3748,8 +3938,8 @@ def phase_k7_kernels_only(device, baseline):
 def _print_ptxas(kbuild, rs, k4, libs):
     """What ptxas reported of each kernel; K1, and K4 in f32, must keep their
     working sets out of local memory (K4 in f64 is reported); K7 must not
-    spill in f32 or f64; K2's eight instantiations (f32 and f64, one to four
-    feet) are reported."""
+    spill in f32 or f64, nor K2's sixteen instantiations (f32 and f64, one to
+    four feet, one or two lanes an alpha)."""
     for lib in libs:
         for k in kbuild.ptxas_report(lib):
             print(f"[build] ptxas {lib.name.rsplit('_', 1)[0]} {k['name'][-40:]}: {k['registers']} "
@@ -3771,21 +3961,24 @@ def _print_ptxas(kbuild, rs, k4, libs):
     _check(len(k7_report) == 2 and all(k["stores"] == k["loads"] == 0 for k in k7_report),
            f"K7 spills (f32 or f64) or ptxas reported other kernels than its two: {k7_report}")
     k2_report = kbuild.ptxas_report(libs[3])
-    _check(len(k2_report) == 8, f"K2: ptxas reported other kernels than its eight: {k2_report}")
+    _check(len(k2_report) == 16 and all(k["stores"] == k["loads"] == 0 for k in k2_report),
+           f"K2 spills or ptxas reported other kernels than its sixteen: {k2_report}")
 
 
 def main(argv) -> int:
     t_start = time.perf_counter()
     hardware_only = argv == ["--hardware-only"]
-    kernels_only = argv[:1] == ["--kernels-only"] and (
-        len(argv) == 1 or (len(argv) == 3 and argv[1] == "--k7-baseline"))
-    baseline = argv[2] if kernels_only and len(argv) == 3 else None
+    baselines = dict(zip(argv[1::2], argv[2::2]))
+    kernels_only = (argv[:1] == ["--kernels-only"] and len(argv) % 2 == 1
+                    and set(baselines) <= {"--k7-baseline", "--k2-baseline"}
+                    and len(baselines) == len(argv) // 2)
     workers = {**WORKERS, **ACT_WORKERS, **HW_WORKERS, "hardware-threaded": phase_hw_threaded,
                "hardware-peer-profile": _worker_hw_peer_profile,
                **{name: _worker_hw_walk(name) for name in HW_FRESH_WALKS}}
     worker = argv[1] if len(argv) == 2 and argv[0] == "--worker" and argv[1] in workers else None
     if argv and not (kernels_only or worker or hardware_only):
-        print("usage: chip_smoke.py [--kernels-only [--k7-baseline SOURCE] | --hardware-only | "
+        print("usage: chip_smoke.py [--kernels-only [--k7-baseline SOURCE] [--k2-baseline SOURCE] "
+              "| --hardware-only | "
               "--worker "
               f"{{{','.join(workers)}}}]", file=sys.stderr)
         return 2
@@ -3839,12 +4032,13 @@ def main(argv) -> int:
     worst_f32_scan, worst_f32_fused = phase_scan_vs_plain(device)
     k2_worst, k2_flips, k2_checks = phase_line_search_vs_plain(device)
     if kernels_only:
-        phase_k7_kernels_only(device, baseline)
+        phase_k7_kernels_only(device, baselines.get("--k7-baseline"))
         phase_small_kernel_vs_plain(device)
         phase_cross_term_vs_plain(device)
         phase_sweep_timing(device)
         phase_scan_timing(device)
         phase_line_search_timing(device)
+        phase_k2_designs(device, baselines.get("--k2-baseline"))
         print(f"[done] kernels only, no result line; wall {time.perf_counter() - t_start:.1f} s")
         return 0
     ctrl, inputs, launches = phase_main_path(device)           # 4
@@ -4026,9 +4220,11 @@ def main(argv) -> int:
         "route": "cuda",
         "source": "quaternion_mpc_tpu_torch/csrc/line_search.cu",
         "replaces": "quaternion_mpc_tpu/solver/fleet.py:757",
-        "design": ("a thread per (alpha, scenario), a scenario's lanes side by side in a warp; "
-                   "the first passing alpha by __ballot_sync, the selected lane's rollout run "
-                   "again and written"),
+        "design": ("a thread per (alpha, scenario), two up to a full wave of blocks, a "
+                   "scenario's lanes side by side in a warp; constants and each knot's slab "
+                   "staged in shared memory by cp.async, double-buffered; the pricing spread "
+                   "over the scenario's lanes; every alpha's rollout kept, the selected one "
+                   "written by the whole block"),
         # every counted path of this process, each driven with the count set
         # to 0 just before and read just after (K2 al x ilqr a quaternion-SRB
         # solve; the untagged paths' 0 are held there and listed as 0 here)

@@ -33,23 +33,73 @@
 // scenario reads the same gains K[j] (nu·12 values a knot), which are most of
 // the bytes the function needs (kernels/line_search.work); the K rollouts'
 // arithmetic is below that at the card's peak. A rollout is a serial chain
-// of N knots, so at small B (the hardware tick's B = 1) latency sets its time.
+// of N knots, so what the design has to hide is the latency of that chain and
+// of its operands' loads; below a full wave of blocks (B up to ~2k at K = 8)
+// that latency is the whole time.
 //
-// Design: one thread per (alpha, scenario). The G lanes of a scenario (G the
-// least power of two >= K) sit next to each other in one warp, 32 / G
-// scenarios a warp. Each lane rolls its alpha with x, u and the running cost
-// in registers and reads the knots' inputs from global memory (the lanes of a
-// scenario read the same addresses). The scenario's first passing alpha is
-// the lowest set bit of its lanes in a __ballot_sync; its cost comes by
-// __shfl_sync. Then the selected lane runs its rollout a second time and
-// writes xs and us. The pricing of xs_bar (by the scenario's lane 0, its J
-// passed to the others by __shfl_sync), the rollouts and the writing are
-// three passes of one loop body (not unrolled), so every cost is summed by
-// the same instructions and the written trajectory has the bits that were
-// priced; no (K, N+1, 13, B) slab of every alpha's trajectory is written.
-// Where the step is not taken, the scenario's lanes copy xs_bar and us_bar
-// through, so the outputs never alias the inputs. Lanes past K or past the last scenario roll nothing and pass no
-// test, but reach every ballot and shuffle.
+// Design (each point measured on an H100; PERF.md, "K2 redesigned"):
+// - A thread per (alpha, scenario), or two (P = 2, below): the G·P lanes of
+//   a scenario (G the least power of two >= K) sit next to each other in one
+//   warp; a block owns S consecutive scenarios.
+// - Shared memory holds every operand a lane reads in the rollouts. Once a
+//   launch: Qd, Qdf, Rd, Cu, w and cb where they are not per knot, and the
+//   model's constants of the midpoint step (inverse inertia, g_body, the CoM
+//   moment; computed by the scenario's first lane from its parameters). A
+//   knot slab, double-buffered: xs_bar[j], us_bar[j], K[j], d[j], x_ref[j],
+//   u_ref[j], λ[j], and cb[j], w[j] where per knot. The whole block copies
+//   knot j+1 with cp.async while its lanes roll knot j; one __syncthreads()
+//   a knot. A copy is one element (4 or 8 bytes): thread t takes scenario
+//   t mod S and every (G·P)-th row, so neighbouring threads read neighbouring
+//   scenarios of a batch-last row (coalesced). In shared memory a slot holds
+//   each scenario's rows one after the other, the scenarios an odd pitch
+//   apart: the copies' stores and the lanes' loads fall into distinct banks,
+//   and a lane reads its rows at a base register plus a constant offset
+//   (with the scenarios side by side, every load paid a multiply by the
+//   stride: 0.1058 -> 0.0907 ms at the fleet's B = 4096, 0.0452 -> 0.0345 at
+//   the hardware tick's B = 1). An input with batch extent 1 (a value every
+//   scenario shares: the golden fixture's references, weights and Cu) is
+//   staged once a block, and every scenario reads that copy.
+//   At nu = 12, nc = 24 and every leaf per scenario that is 379 values a
+//   scenario once and 230 a knot (255 with w and cb per knot): ~108 KB a
+//   block in f32 at S = 32 and in f64 at S = 16, two blocks an SM.
+// - Where no J is given, the scenario's G·P lanes price xs_bar and us_bar
+//   together before the rollouts: lane q takes the stage costs of knots q,
+//   q+G·P, ... and the terminal, the knots' rows read from device memory and
+//   the constants from shared memory (their costs do not depend on each
+//   other); the stage costs come to every lane of the scenario by
+//   __shfl_sync, round by round, each lane adding them in knot order with
+//   the same operations as a rollout's running sum: J and the J_k are summed
+//   alike, as the f32 Armijo test needs.
+// - No second rollout: each alpha writes its x at every knot and u at every
+//   stage, as it rolls them, into a trajectory slab (row e, scenario s,
+//   alpha k at e·stride + s·G + k: a warp's stores are consecutive). The
+//   slab lives in shared memory where it fits beside the staging and every
+//   block has an SM of its own (small B: it then takes no block's place);
+//   else in a device-memory scratch of (N+1)·13 + N·nu rows x B x G values
+//   that the wrapper allocates (the fleet's B = 4096: 34 MB in f32, most of
+//   it in L2). After the select, the whole block writes xs and us, thread t
+//   taking scenario t mod S and every (G·P)-th row: the selected alpha's
+//   rows, or xs_bar's and us_bar's where the step is not taken (so the
+//   outputs never alias the inputs), coalesced along B, eight loads ahead of
+//   their stores.
+// - The launch plan (choose_blocks): while the scenarios fill at most one
+//   block an SM at 256 lanes a block (512 in f32, the fleet's B = 4096 at 8
+//   alphas), two lanes serve each alpha (P = 2: each computes half of u's
+//   rows and, in chunks of four, half of the friction rows of every knot;
+//   the pair exchanges them by __shfl_xor_sync and both lanes add the rows
+//   in row order) in blocks of 128-256 lanes spread over the SMs; below a
+//   wave the time is then one block's chain. Above, one lane an alpha in
+//   blocks whose rows are 128 bytes (S = 32 in f32, 16 in f64).
+//   At K = 12 a scenario's 16 lanes hold 12 alphas: the 4 past K roll the
+//   last alpha and pass no test.
+// - The scenario's first passing alpha is the lowest set bit of its lanes in
+//   a __ballot_sync, its cost comes by __shfl_sync. Lanes past the last
+//   scenario roll nothing (with P = 2 they roll what their shared memory
+//   holds, for the shuffles); all reach every barrier, ballot and shuffle.
+// Every value is computed by the same sequence of rounded operations as in
+// the previous design (one thread per (alpha, scenario) reading every
+// operand from device memory, a second rollout of the selected alpha, the
+// pricing by lane 0 alone): its outputs have the same bits, NaN's sign aside.
 // Everything that changes within a solve is read from device memory (ρ, h, J,
 // dV1, dV2, done, the alphas), so a captured CUDA graph replays it right.
 // A select, never a 0/1-weighted sum, takes the selected values: an
@@ -59,7 +109,7 @@
 // its leading axes and has a batch axis of B or of 1 (a value every scenario
 // shares, read with batch stride 0). The wrapper (kernels/line_search.py)
 // hands a table of input pointers and their batch extents; the order is
-// enum Input below.
+// enum Input below, then the alphas, done and the trajectory scratch.
 //
 // C interface (bound with ctypes): line_search_f32 / _f64 take the input
 // table, its batch extents, the output table, N, B, K, n_feet (1-4), nc and
@@ -73,9 +123,18 @@
 // the plain version's stands: that closed loop's fate is set by rounding
 // (PERF.md, K2's findings).
 //
+// Build options: -DK2_TRAJ_IN_DEVICE_MEMORY keeps the trajectory slab in the
+// scratch at every shape; -DK2_PLAN_OVERRIDE adds line_search_override(S,
+// P), which sets the block's scenarios and the lanes an alpha of the
+// launches after it;
+// -DK2_PHASE_CLOCKS makes thread 0 of the middle block stamp clock64() after
+// every phase (staging, pricing, each knot's copies, rollout and wait, the
+// select, the write), read back by line_search_clocks(out, n).
+//
 // The device code also compiles as plain C++ (no __CUDACC__) against
-// tests/cuda_emulation.h; tests/test_torch_line_search_emulation.py holds it
-// against the plain version that way.
+// tests/cuda_emulation.h, where cp_async copies at once;
+// tests/test_torch_line_search_emulation.py holds it against the plain
+// version that way.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -85,12 +144,14 @@
 #define K2_ISFINITE(x) std::isfinite(x)
 #endif
 
+#include <cstddef>
+
 namespace {
 
 constexpr int NX = 13;  // state: p 3, q 4 (w first), v 3, ω 3 (body frame)
 constexpr int NE = 12;  // error state: the attitude as 3 Cayley coordinates
-constexpr int THREADS = 128;  // lanes a block
 constexpr unsigned FULL = 0xffffffffu;
+constexpr size_t SMEM_LIMIT = 232448;  // the shared memory a block may have on an H100
 
 // the inputs, in the order of the wrapper's table
 enum Input {
@@ -103,6 +164,9 @@ enum Input {
                                         // null with FLAG_PRICE)
   INPUTS
 };
+// after the table's INPUTS pointers: the alphas (K), done (B, bool) and the
+// trajectory scratch ((N+1)·13 + N·nu rows x B x G values)
+constexpr int IN_ALPHAS = INPUTS, IN_DONE = INPUTS + 1, IN_SCRATCH = INPUTS + 2;
 // the outputs: xs (N+1, 13, B), us (N, nu, B), the cost the test compared
 // against (B), J (B), accepted (B, bool), improved (B, bool), the rollouts'
 // costs (K, B) or null
@@ -112,6 +176,18 @@ constexpr int FLAG_W_PER_KNOT = 1, FLAG_CB_PER_KNOT = 2, FLAG_PRICE = 4;
 
 constexpr double GRAVITY = 9.81;
 
+// What shared memory holds: the values staged once a launch, the model's
+// constants, then one knot's slab (in two buffers).
+enum Slot {
+  SL_QD, SL_QDF, SL_RD, SL_W, SL_CU, SL_CB, SL_MODEL,
+  SL_XS, SL_US, SL_KS, SL_DS, SL_XREF, SL_UREF, SL_LAM, SL_CBK, SL_WK,
+  SLOTS
+};
+constexpr int FIRST_KNOT_SLOT = SL_XS;
+// The model's constants of one scenario, by index: the feet (3·NF), the
+// inverse inertia (9), g_body (3), the CoM moment c × (m_c·g_body) (3), the mass.
+constexpr int model_values(int NF) { return 3 * NF + 16; }
+
 // An input: its values, and the extent of its batch axis (B, or 1 when every
 // scenario shares them).
 template <typename T>
@@ -120,24 +196,50 @@ struct View {
   long long ld;
 };
 
-// One scenario's column of an input: value i at p[i * ld].
+// One scenario's rows of an input in device memory: row i at p[i * ld].
 template <typename T>
 struct Col {
   const T* p;
   long long ld;
   __device__ __forceinline__ T operator[](long long i) const { return p[i * ld]; }
+  __device__ __forceinline__ Col at(long long row) const { return Col{p + row * ld, ld}; }
+};
+
+// One scenario's rows of a slot in shared memory, one after the other: row
+// i at p[i], an offset the compiler folds into the load.
+template <typename T>
+struct Sm {
+  const T* p;
+  __device__ __forceinline__ T operator[](int i) const { return p[i]; }
 };
 
 template <typename T>
-__device__ __forceinline__ Col<T> column(const View<T>& v, int b) {
+__device__ __forceinline__ Col<T> column(const View<T>& v, long long b) {
   return Col<T>{v.p + (v.ld == 1 ? 0 : b), v.ld};
 }
+
+// Where a launch keeps what in shared memory, in values of T: each slot's
+// offset (a knot slot's within a buffer) and the pitch between its
+// scenarios' rows (odd, so that the scenarios of a warp fall into distinct
+// banks; 0 for an input of batch extent 1, one copy for all); rows 0 for a
+// slot this launch does not use.
+struct Plan {
+  int S, lgS, G, lgG, threads, blocks;
+  int P, GP, lgGP;  // lanes an alpha (1 or 2), and a scenario's lanes G·P
+  int at[SLOTS], pitch[SLOTS], rows[SLOTS];
+  int source[SLOTS];         // the input a slot is staged from (-1: the model)
+  int knot_at, knot_values;  // buffer 0 at knot_at, buffer 1 knot_values further
+  int sel_at;                // 2·S ints: each scenario's take and selected lane
+  int traj_at;               // the trajectory slab, or -1: in the device-memory scratch
+  size_t bytes;
+};
 
 template <typename T>
 struct Args {
   View<T> in[INPUTS];
   const T* alphas;              // (K)
   const unsigned char* done;    // (B), bool
+  T* scratch;                   // the trajectories where they are not in shared memory
   T* xs;
   T* us;
   T* J_in;
@@ -145,7 +247,8 @@ struct Args {
   unsigned char* accepted;
   unsigned char* improved;
   T* costs;                     // (K, B) or null
-  int N, B, K, G, nc, flags;
+  int N, B, K, nc, flags;
+  Plan plan;
 };
 
 // The least power of two >= K: the lanes a scenario takes.
@@ -153,6 +256,199 @@ inline int group_lanes(int K) {
   int g = 1;
   while (g < K) g <<= 1;
   return g;
+}
+
+inline int log2_of(int pow2) {
+  int l = 0;
+  while ((1 << l) < pow2) ++l;
+  return l;
+}
+
+// The lanes a block may have (measured: 512-lane blocks were slower than 256
+// at every shape that could take them).
+constexpr int MAX_THREADS = 256;
+
+#ifdef K2_PLAN_OVERRIDE
+// A measurement build's (S, P) in place of the policy's, where each is > 0
+// (and allowed: S >= 32 / (G·P), S·G·P within MAX_THREADS, P = 2 only at G <= 16).
+int override_S = 0, override_P = 0;
+#endif
+
+// The block's scenarios S and the lanes P that serve one alpha (two: each
+// computes half of the inputs' rows and of the friction rows of every knot,
+// exchanged by shuffles), as measured on an H100 (PERF.md, "K2 redesigned"):
+// while B scenarios fill one block an SM at <= 256 lanes a block (512 in
+// f32), the launch is bound by the latency of one block's chain, and two
+// lanes an alpha in blocks of 128-256 lanes spread over the SMs take least
+// time; above, one lane an alpha in blocks of 128-byte rows (S = 32 in f32,
+// 16 in f64).
+template <typename T>
+void choose_blocks(int G, int B, int sms, int& S, int& P) {
+  int wave = 1;  // the scenarios a block for one block an SM
+  while (static_cast<long long>(wave) * sms < B) wave <<= 1;
+  P = G <= 16 && wave * 2 * G <= (sizeof(T) == 4 ? 512 : 256) ? 2 : 1;
+#ifdef K2_PLAN_OVERRIDE
+  if (override_P > 0) P = override_P == 2 && G <= 16 ? 2 : 1;
+#endif
+  const int lanes = G * P;
+  int most = 128 / static_cast<int>(sizeof(T));  // a row of 128 bytes
+  while (most * lanes > MAX_THREADS) most >>= 1;
+  int fit = 1;  // no more scenarios than B needs
+  while (fit < B) fit <<= 1;
+  S = wave > 128 / lanes ? wave : 128 / lanes;
+  S = S < fit ? S : fit;
+#ifdef K2_PLAN_OVERRIDE
+  if (override_S > 0) S = override_S;
+#endif
+  S = S < most ? S : most;
+  S = S * lanes < 32 ? 32 / lanes : S;  // a warp at least
+}
+
+// The launch's plan: the block's scenarios and lanes, and shared memory;
+// `sms`, the card's multiprocessors.
+template <typename T>
+Plan make_plan(const long long* ld, int N, int B, int K, int nu, int nc, int flags, int sms) {
+  Plan p{};
+  p.G = group_lanes(K);
+  p.lgG = log2_of(p.G);
+  int S;
+  choose_blocks<T>(p.G, B, sms, S, p.P);
+  p.GP = p.G * p.P;
+  p.lgGP = log2_of(p.GP);
+  p.S = S;
+  p.lgS = log2_of(S);
+  p.threads = S * p.GP;
+  p.blocks = static_cast<int>((static_cast<long long>(B) + S - 1) / S);
+  const bool w_knot = flags & FLAG_W_PER_KNOT, cb_knot = flags & FLAG_CB_PER_KNOT;
+  const int rows[SLOTS] = {
+      NX, NX, nu, w_knot ? 0 : 1, nc * nu, cb_knot ? 0 : nc, model_values(nu / 3),
+      NX, nu, nu * NE, nu, NX, nu, nc, cb_knot ? nc : 0, w_knot ? 1 : 0};
+  const int source[SLOTS] = {IN_QD, IN_QDF, IN_RD, IN_W, IN_CU, IN_CB, -1,
+                             IN_XS, IN_US, IN_KS, IN_DS, IN_X_REF, IN_U_REF, IN_LAM, IN_CB, IN_W};
+  int at = 0;
+  for (int slot = 0; slot < SLOTS; ++slot) {
+    if (slot == FIRST_KNOT_SLOT) {
+      p.knot_at = at;
+      at = 0;
+    }
+    p.rows[slot] = rows[slot];
+    p.source[slot] = source[slot];
+    const bool shared = source[slot] >= 0 && ld[source[slot]] == 1;
+    p.pitch[slot] = shared ? 0 : rows[slot] | 1;
+    p.at[slot] = at;
+    at += rows[slot] == 0 ? 0 : shared ? rows[slot] : S * p.pitch[slot];
+  }
+  p.knot_values = at;
+  const size_t values = static_cast<size_t>(p.knot_at) + 2 * static_cast<size_t>(p.knot_values);
+  p.sel_at = static_cast<int>(values);
+  const size_t sel = (2 * S * sizeof(int) + sizeof(T) - 1) / sizeof(T);
+  const size_t traj = (static_cast<size_t>(N + 1) * NX + static_cast<size_t>(N) * nu) * S * p.G;
+  p.traj_at = static_cast<int>(values + sel);
+  p.bytes = (values + sel + traj) * sizeof(T);
+  // in shared memory where it fits and every block has an SM of its own, so
+  // that it takes no block's place
+#ifdef K2_TRAJ_IN_DEVICE_MEMORY
+  const bool in_smem = false;
+#else
+  const bool in_smem = p.bytes <= SMEM_LIMIT && p.blocks <= sms;
+#endif
+  if (!in_smem) {
+    p.traj_at = -1;
+    p.bytes = (values + sel) * sizeof(T);
+  }
+  return p;
+}
+
+#ifdef K2_PHASE_CLOCKS
+__device__ long long phase_clocks[1 << 12];
+struct Stamp {
+  int n = 0;
+  bool on;
+  __device__ explicit Stamp(bool on_) : on(on_) {}
+  __device__ __forceinline__ void operator()() {
+    if (on && n < (1 << 12)) phase_clocks[n++] = clock64();
+  }
+};
+#else
+struct Stamp {
+  __device__ explicit Stamp(bool) {}
+  __device__ __forceinline__ void operator()() {}
+};
+#endif
+
+// One element from device memory to shared memory, asynchronously.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+#ifdef __CUDACC__
+  const unsigned to = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(to), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(to), "l"(src) : "memory");
+  }
+#else
+  *dst = *src;
+#endif
+}
+
+// Closes the group of copies this thread has started since the last one.
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Waits until at most `pending` of this thread's groups of copies are in flight.
+template <int pending>
+__device__ __forceinline__ void cp_async_wait_prior() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+#endif
+}
+
+// Waits for every copy this thread has started.
+__device__ __forceinline__ void cp_async_wait_all() {
+#ifdef __CUDACC__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// The block copies `rows` rows of an input (row r of scenario b at
+// src[r·ld + b]) for its scenarios b0.. into dst: row r of scenario s at
+// dst[s·pitch + r], or, for an input of batch extent 1, row r at dst[r].
+// Thread t takes scenario t mod S: neighbouring threads read neighbouring
+// values of a batch-last row and write words `pitch` (odd) apart.
+template <typename T>
+__device__ __forceinline__ void stage(T* dst, const T* src, long long ld, int rows, int pitch,
+                                      const Plan& p, long long b0, long long B) {
+  if (ld == 1) {
+    for (int r = threadIdx.x; r < rows; r += p.threads) cp_async(dst + r, src + r);
+    return;
+  }
+  const int s = threadIdx.x & (p.S - 1);
+  if (b0 + s >= B) return;
+  dst += s * pitch;
+  src += b0 + s;
+  for (int r = threadIdx.x >> p.lgS; r < rows; r += p.threads >> p.lgS)
+    cp_async(dst + r, src + r * ld);
+}
+
+// dst[e·dst_st] = src[e·src_st] for e = first, first + step, ... < rows,
+// eight loads ahead of their stores: the loads do not wait for each other.
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, long long dst_st, const T* src,
+                                          long long src_st, long long rows, int first,
+                                          int step) {
+  constexpr int U = 8;
+  long long e = first;
+  for (; e + (U - 1) * step < rows; e += U * step) {
+    T v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) v[u] = src[(e + u * step) * src_st];
+#pragma unroll
+    for (int u = 0; u < U; ++u) dst[(e + u * step) * dst_st] = v[u];
+  }
+  for (; e < rows; e += step) dst[e * dst_st] = src[e * src_st];
 }
 
 template <typename T>
@@ -169,24 +465,14 @@ __device__ __forceinline__ void quat_rate(const T* q, const T* w, T* out) {
   out[3] = T(0.5) * ((-q[2] * w[0] + q[1] * w[1]) + q[0] * w[2]);
 }
 
-// The model's per-scenario constants of the midpoint step.
+// The model's per-scenario constants of the midpoint step, from its
+// parameters, to m[q] (q as in model_values).
 template <typename T, int NF>
-struct Model {
-  T foot[NF][3];
-  T inv_inertia[9];
-  T g_body[3];
-  T com_moment[3];  // c × (m_c·g_body)
-  T mass;
-};
-
-template <typename T, int NF>
-__device__ __forceinline__ void load_model(const Args<T>& a, int b, Model<T, NF>& m) {
+__device__ __forceinline__ void load_model(const Args<T>& a, long long b, T* m) {
   const Col<T> foot = column(a.in[IN_FOOT], b), inertia = column(a.in[IN_INERTIA], b),
                com = column(a.in[IN_COM_OFFSET], b), rot = column(a.in[IN_ROT], b);
-#pragma unroll
-  for (int f = 0; f < NF; ++f)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) m.foot[f][c] = foot[3 * f + c];
+  for (int i = 0; i < 3 * NF; ++i) m[i] = foot[i];
+  T* inv = m + 3 * NF;
   // the adjugate over the determinant (models/srb._inv3_bl)
   const T A = inertia[0], Bv = inertia[1], C = inertia[2], D = inertia[3], E = inertia[4],
           F = inertia[5], G = inertia[6], H = inertia[7], I = inertia[8];
@@ -194,24 +480,29 @@ __device__ __forceinline__ void load_model(const Args<T>& a, int b, Model<T, NF>
   const T a21 = F * G - D * I, a22 = A * I - C * G, a23 = C * D - A * F;
   const T a31 = D * H - E * G, a32 = Bv * G - A * H, a33 = A * E - Bv * D;
   const T det = (A * a11 + Bv * a21) + C * a31;
-  m.inv_inertia[0] = a11 / det, m.inv_inertia[1] = a12 / det, m.inv_inertia[2] = a13 / det;
-  m.inv_inertia[3] = a21 / det, m.inv_inertia[4] = a22 / det, m.inv_inertia[5] = a23 / det;
-  m.inv_inertia[6] = a31 / det, m.inv_inertia[7] = a32 / det, m.inv_inertia[8] = a33 / det;
+  inv[0] = a11 / det, inv[1] = a12 / det, inv[2] = a13 / det;
+  inv[3] = a21 / det, inv[4] = a22 / det, inv[5] = a23 / det;
+  inv[6] = a31 / det, inv[7] = a32 / det, inv[8] = a33 / det;
+  T g_body[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) m.g_body[c] = T(-GRAVITY) * rot[6 + c];  // Rᵀ g_world
+  for (int c = 0; c < 3; ++c) g_body[c] = T(-GRAVITY) * rot[6 + c];  // Rᵀ g_world
   const T com_mass = column(a.in[IN_COM_MASS], b)[0];
-  const T mg[3] = {com_mass * m.g_body[0], com_mass * m.g_body[1], com_mass * m.g_body[2]};
+  const T mg[3] = {com_mass * g_body[0], com_mass * g_body[1], com_mass * g_body[2]};
   const T c0 = com[0], c1 = com[1], c2 = com[2];
-  m.com_moment[0] = c1 * mg[2] - c2 * mg[1];
-  m.com_moment[1] = c2 * mg[0] - c0 * mg[2];
-  m.com_moment[2] = c0 * mg[1] - c1 * mg[0];
-  m.mass = column(a.in[IN_MASS], b)[0];
+  T* rest = inv + 9;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) rest[c] = g_body[c];
+  rest[3] = c1 * mg[2] - c2 * mg[1];
+  rest[4] = c2 * mg[0] - c0 * mg[2];
+  rest[5] = c0 * mg[1] - c1 * mg[0];
+  rest[6] = column(a.in[IN_MASS], b)[0];
 }
 
 // x ← x + h·f(x + ½h·f(x, u), u). The forces set v̇ and ω̇ alone, so both
-// evaluations of f share them.
+// evaluations of f share them. m: the scenario's model constants.
 template <typename T, int NF>
-__device__ __forceinline__ void midpoint_step(T* x, const T* u, const Model<T, NF>& m, T h) {
+__device__ __forceinline__ void midpoint_step(T* x, const T* u, const Sm<T>& m, T h) {
+  constexpr int INV = 3 * NF, G_BODY = INV + 9, COM = G_BODY + 3, MASS = COM + 3;
   T force[3], moment[3];
 #pragma unroll
   for (int c = 0; c < 3; ++c) force[c] = u[c];
@@ -221,7 +512,7 @@ __device__ __forceinline__ void midpoint_step(T* x, const T* u, const Model<T, N
     for (int c = 0; c < 3; ++c) force[c] = force[c] + u[3 * f + c];
 #pragma unroll
   for (int f = 0; f < NF; ++f) {
-    const T* r = m.foot[f];
+    const T r[3] = {m[3 * f], m[3 * f + 1], m[3 * f + 2]};
     const T* F = u + 3 * f;
     const T t0 = r[1] * F[2] - r[2] * F[1], t1 = r[2] * F[0] - r[0] * F[2],
             t2 = r[0] * F[1] - r[1] * F[0];
@@ -233,13 +524,14 @@ __device__ __forceinline__ void midpoint_step(T* x, const T* u, const Model<T, N
   }
   T v_dot[3], w_dot[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) moment[c] = moment[c] + m.com_moment[c];
+  for (int c = 0; c < 3; ++c) moment[c] = moment[c] + m[COM + c];
+  const T mass = m[MASS];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) v_dot[c] = force[c] / m.mass + m.g_body[c];
+  for (int c = 0; c < 3; ++c) v_dot[c] = force[c] / mass + m[G_BODY + c];
 #pragma unroll
   for (int r = 0; r < 3; ++r)
-    w_dot[r] = (m.inv_inertia[3 * r] * moment[0] + m.inv_inertia[3 * r + 1] * moment[1]) +
-               m.inv_inertia[3 * r + 2] * moment[2];
+    w_dot[r] = (m[INV + 3 * r] * moment[0] + m[INV + 3 * r + 1] * moment[1]) +
+               m[INV + 3 * r + 2] * moment[2];
 
   const T half_h = T(0.5) * h;
   T q_dot[4], q_m[4], w_m[3], v_m[3];
@@ -264,191 +556,394 @@ __device__ __forceinline__ void midpoint_step(T* x, const T* u, const Model<T, N
 }
 
 // Σ Qd·dx² and q·q_ref of a state against its reference row.
-template <typename T>
-__device__ __forceinline__ void state_terms(const T* x, const Col<T>& x_ref, long long row,
-                                            const Col<T>& Qd, T& sq, T& dot) {
+template <typename T, typename RK, typename RC>
+__device__ __forceinline__ void state_terms(const T* x, const RK& x_ref, const RC& Qd, T& sq,
+                                            T& dot) {
   sq = T(0), dot = T(0);
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
-    const T r = x_ref[row + i];
+    const T r = x_ref[i];
     const T d = x[i] - r;
     sq = sq + Qd[i] * d * d;
     if (i >= 3 && i < 7) dot = dot + x[i] * r;
   }
 }
 
-template <typename T, int NF>
-__global__ void __launch_bounds__(THREADS) line_search_kernel(const Args<T> a) {
-  constexpr int NU = 3 * NF;
-  const int N = a.N, G = a.G, nc = a.nc;
-  const long long B = a.B;
-  const int tid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int k = tid & (G - 1);
-  const int base = lane & ~(G - 1);  // the scenario's first lane in the warp
-  const bool in_range = tid / G < a.B;
-  const int b = in_range ? tid / G : a.B - 1;  // lanes past the last scenario read the last one
-  const bool live = in_range && k < a.K;
-  const T alpha = a.alphas[k < a.K ? k : a.K - 1];
-
-  const Col<T> xs_bar = column(a.in[IN_XS], b), us_bar = column(a.in[IN_US], b),
-               Ks = column(a.in[IN_KS], b), ds = column(a.in[IN_DS], b),
-               x_ref = column(a.in[IN_X_REF], b), u_ref = column(a.in[IN_U_REF], b),
-               Qd = column(a.in[IN_QD], b), Qdf = column(a.in[IN_QDF], b), Rd = column(a.in[IN_RD], b),
-               w = column(a.in[IN_W], b), Cu = column(a.in[IN_CU], b), cb = column(a.in[IN_CB], b),
-               lam = column(a.in[IN_LAM], b);
-  const T h = column(a.in[IN_H], b)[0], rho = column(a.in[IN_RHO], b)[0];
-  const bool priced = a.flags & FLAG_PRICE;
-  const bool w_per_knot = a.flags & FLAG_W_PER_KNOT, cb_per_knot = a.flags & FLAG_CB_PER_KNOT;
-  Model<T, NF> model;
-  load_model(a, b, model);
-
-  T J = priced ? T(0) : column(a.in[IN_J], b)[0];
-  T J_k = T(0);
-  bool take = false;
-  int first = 0;
-  // Pass 0, where J is not given: the scenario's lane 0 prices xs_bar and
-  // us_bar. Pass 1: every live lane rolls its alpha and prices it. Pass 2:
-  // the selected lane rolls it again and writes it. One body, not unrolled,
-  // so that every cost is summed by the same instructions.
-#pragma unroll 1
-  for (int pass = 0; pass < 3; ++pass) {
-    const bool price = pass == 0, write = pass == 2;
-    T J_run = T(0);
-    if (price ? priced && in_range && k == 0 : write ? take && k == first : live) {
-      T x[NX], u[NU];
+// The sums of the friction rows' AL terms, Σ λ̄² and Σ λ², split between an
+// alpha's two lanes (h = 0, 1; the other's lane is lane ^ partner): in
+// chunks of 2·R rows, lane h computes the chunk's rows h·R .. h·R + R-1, the
+// pair exchanges z² and λ² by shuffles, and both lanes add the chunk's rows
+// in row order: each lane ends with the one-lane sums.
+template <typename T, int NU, typename RK, typename RC>
+__device__ __forceinline__ void friction_sums_pair(const T* u, const RC& Cu, const RK& cb,
+                                                   const RK& lam, int nc, T rho, int h,
+                                                   int partner, T& s_bar, T& s_lam) {
+  constexpr int R = 4;
+  for (int r0 = 0; r0 < nc; r0 += 2 * R) {
+    T zz[R], ll[R], oz[R], ol[R];
 #pragma unroll
-      for (int i = 0; i < NX; ++i) x[i] = xs_bar[i];
-      T stages = T(0);
-      for (int j = 0; j < N; ++j) {
-        if (price) {
+    for (int i = 0; i < R; ++i) {
+      const int row = r0 + h * R + i;
+      const int r = row < nc ? row : 0;  // past the last row: any row, never added
+      T c = T(0);
 #pragma unroll
-          for (int i = 0; i < NX; ++i) x[i] = xs_bar[(long long)j * NX + i];
-#pragma unroll
-          for (int i = 0; i < NU; ++i) u[i] = us_bar[(long long)j * NU + i];
-        } else {
-          // δx = x ⊖ xs_bar[j]
-          T dx[NE];
-          {
-            T xb[NX];
-#pragma unroll
-            for (int i = 0; i < NX; ++i) xb[i] = xs_bar[(long long)j * NX + i];
-#pragma unroll
-            for (int i = 0; i < 3; ++i) dx[i] = x[i] - xb[i];
-            // δq = q_ref⁻¹ ⊗ q, then its Cayley coordinates dv / dw
-            const T w1 = xb[3], v1[3] = {-xb[4], -xb[5], -xb[6]};
-            const T w2 = x[3], v2[3] = {x[4], x[5], x[6]};
-            const T dw = w1 * w2 - ((v1[0] * v2[0] + v1[1] * v2[1]) + v1[2] * v2[2]);
-            const T cr[3] = {v1[1] * v2[2] - v1[2] * v2[1], v1[2] * v2[0] - v1[0] * v2[2],
-                             v1[0] * v2[1] - v1[1] * v2[0]};
-#pragma unroll
-            for (int i = 0; i < 3; ++i) dx[3 + i] = (w1 * v2[i] + w2 * v1[i] + cr[i]) / dw;
-#pragma unroll
-            for (int i = 6; i < NE; ++i) dx[i] = x[i + 1] - xb[i + 1];
-          }
-          // u = ū + α·d + K·δx
-#pragma unroll
-          for (int i = 0; i < NU; ++i) {
-            const long long row = (long long)j * NU + i;
-            T kdx = T(0);
-#pragma unroll
-            for (int c = 0; c < NE; ++c) kdx = kdx + Ks[row * NE + c] * dx[c];
-            u[i] = us_bar[row] + alpha * ds[row] + kdx;
-          }
-        }
-        if (write) {
-#pragma unroll
-          for (int i = 0; i < NX; ++i) a.xs[((long long)j * NX + i) * B + b] = x[i];
-#pragma unroll
-          for (int i = 0; i < NU; ++i) a.us[((long long)j * NU + i) * B + b] = u[i];
-        }
-        // the stage's cost
-        T stage;
-        {
-          T sq, dot, su = T(0);
-          state_terms(x, x_ref, (long long)j * NX, Qd, sq, dot);
-#pragma unroll
-          for (int i = 0; i < NU; ++i) {
-            const T d = u[i] - u_ref[(long long)j * NU + i];
-            su = su + Rd[i] * d * d;
-          }
-          stage = T(0.5) * sq;
-          stage = stage + T(0.5) * su;
-          stage = stage + w[w_per_knot ? j : 0] * (T(1) - k_abs(dot));
-        }
-        {
-          T s_bar = T(0), s_lam = T(0);
-          const long long cb_row = cb_per_knot ? (long long)j * nc : 0;
-          for (int r = 0; r < nc; ++r) {
-            T c = T(0);
-#pragma unroll
-            for (int i = 0; i < NU; ++i) c = c + Cu[(long long)r * NU + i] * u[i];
-            c = c + cb[cb_row + r];
-            const T l = lam[(long long)j * nc + r];
-            T z = l + rho * c;
-            z = z < T(0) ? T(0) : z;  // max(z, 0) that keeps a NaN, as torch.clamp
-            s_bar = s_bar + z * z;
-            s_lam = s_lam + l * l;
-          }
-          stage = stage + (s_bar - s_lam) / (T(2) * rho);
-        }
-        stages = stages + stage;
-        if (!price) midpoint_step(x, u, model, h);
-      }
-      if (price) {
-#pragma unroll
-        for (int i = 0; i < NX; ++i) x[i] = xs_bar[(long long)N * NX + i];
-      }
-      if (write) {
-#pragma unroll
-        for (int i = 0; i < NX; ++i) a.xs[((long long)N * NX + i) * B + b] = x[i];
-      } else {
-        T sq, dot;
-        state_terms(x, x_ref, (long long)N * NX, Qdf, sq, dot);
-        J_run = stages + (T(0.5) * sq + w[w_per_knot ? N : 0] * (T(1) - k_abs(dot)));
-      }
+      for (int m = 0; m < NU; ++m) c = c + Cu[r * NU + m] * u[m];
+      c = c + cb[r];
+      const T l = lam[r];
+      T z = l + rho * c;
+      z = z < T(0) ? T(0) : z;  // max(z, 0) that keeps a NaN, as torch.clamp
+      zz[i] = z * z;
+      ll[i] = l * l;
     }
-    if (price && priced) J = __shfl_sync(FULL, J_run, base);
-    if (pass == 1) {
-      J_k = J_run;
-      // Armijo against the expected decrease, then the first passing alpha
-      const T dV1 = column(a.in[IN_DV1], b)[0], dV2 = column(a.in[IN_DV2], b)[0];
-      const T expected = -(alpha * dV1 + alpha * alpha * dV2);
-      bool ok = expected > T(0)
-                    ? (J - J_k) / (expected < T(1e-30) ? T(1e-30) : expected) > T(1e-4)
-                    : J_k < J + T(1e-12);
-      ok = ok && live && K2_ISFINITE(J_k);
-      const unsigned votes = __ballot_sync(FULL, ok);
-      const unsigned mine = G == 32 ? votes : (votes >> base) & ((1u << G) - 1u);
-      const bool accepted = mine != 0u;
-      first = accepted ? __ffs(mine) - 1 : 0;
-      const T J_first = __shfl_sync(FULL, J_k, base + first);
-      const T J_ls = accepted ? J_first : J;
-      const bool improved = accepted && J_ls < J;
-      take = in_range && improved && !a.done[b];
-      if (in_range && k == 0) {
-        a.J_in[b] = J;
-        a.J_out[b] = take ? J_ls : J;
-        a.accepted[b] = accepted;
-        a.improved[b] = improved;
-      }
-      if (live && a.costs != nullptr) a.costs[(long long)k * B + b] = J_k;
-      if (in_range && !take) {  // the scenario's lanes copy xs_bar and us_bar through
-        for (long long e = k; e < (long long)(N + 1) * NX; e += G) a.xs[e * B + b] = xs_bar[e];
-        for (long long e = k; e < (long long)N * NU; e += G) a.us[e * B + b] = us_bar[e];
-      }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      oz[i] = __shfl_xor_sync(FULL, zz[i], partner);
+      ol[i] = __shfl_xor_sync(FULL, ll[i], partner);
+    }
+#pragma unroll
+    for (int i = 0; i < 2 * R; ++i) {
+      if (r0 + i >= nc) break;
+      const bool mine = (i < R) == (h == 0);
+      s_bar = s_bar + (mine ? zz[i % R] : oz[i % R]);
+      s_lam = s_lam + (mine ? ll[i % R] : ol[i % R]);
     }
   }
 }
 
-// The kernel's arguments from the wrapper's tables.
+// A stage knot's AL cost of (x, u), each operand at the knot's first row:
+// the knot's rows (RK: x_ref, u_ref, cb, λ) and the constants (RC: Qd, Rd,
+// Cu) may be read from different memories. P = 2: the friction rows split
+// between the alpha's two lanes (friction_sums_pair).
+template <typename T, int NU, int P = 1, typename RK, typename RC>
+__device__ __forceinline__ T stage_cost(const T* x, const T* u, const RK& x_ref, const RK& u_ref,
+                                        const RC& Qd, const RC& Rd, T w, const RC& Cu,
+                                        const RK& cb, const RK& lam, int nc, T rho, int h = 0,
+                                        int partner = 0) {
+  T stage;
+  {
+    T sq, dot, su = T(0);
+    state_terms(x, x_ref, Qd, sq, dot);
+#pragma unroll
+    for (int i = 0; i < NU; ++i) {
+      const T d = u[i] - u_ref[i];
+      su = su + Rd[i] * d * d;
+    }
+    stage = T(0.5) * sq;
+    stage = stage + T(0.5) * su;
+    stage = stage + w * (T(1) - k_abs(dot));
+  }
+  T s_bar = T(0), s_lam = T(0);
+  if constexpr (P == 2) {
+    friction_sums_pair<T, NU>(u, Cu, cb, lam, nc, rho, h, partner, s_bar, s_lam);
+  } else {
+    for (int r = 0; r < nc; ++r) {
+      T c = T(0);
+#pragma unroll
+      for (int i = 0; i < NU; ++i) c = c + Cu[r * NU + i] * u[i];
+      c = c + cb[r];
+      const T l = lam[r];
+      T z = l + rho * c;
+      z = z < T(0) ? T(0) : z;  // max(z, 0) that keeps a NaN, as torch.clamp
+      s_bar = s_bar + z * z;
+      s_lam = s_lam + l * l;
+    }
+  }
+  return stage + (s_bar - s_lam) / (T(2) * rho);
+}
+
+// u = ū + α·d + K·δx, the rows split between the alpha's two lanes: lane h
+// computes rows h·UH .. h·UH + UH-1 and the pair exchanges them by shuffles.
+template <typename T, int NU>
+__device__ __forceinline__ void inputs_pair(const T* dx, T alpha, const Sm<T>& us_bar,
+                                            const Sm<T>& ds, const Sm<T>& Ks, int h, int partner,
+                                            T* u) {
+  constexpr int UH = (NU + 1) / 2;
+  T mine[UH], other[UH];
+#pragma unroll
+  for (int i = 0; i < UH; ++i) {
+    const int row = h * UH + i < NU ? h * UH + i : NU - 1;  // past the last row: never used
+    T kdx = T(0);
+#pragma unroll
+    for (int c = 0; c < NE; ++c) kdx = kdx + Ks[row * NE + c] * dx[c];
+    mine[i] = us_bar[row] + alpha * ds[row] + kdx;
+  }
+#pragma unroll
+  for (int i = 0; i < UH; ++i) other[i] = __shfl_xor_sync(FULL, mine[i], partner);
+#pragma unroll
+  for (int i = 0; i < NU; ++i) u[i] = (i < UH) == (h == 0) ? mine[i % UH] : other[i % UH];
+}
+
+// The terminal cost of x against its reference row.
+template <typename T, typename RK, typename RC>
+__device__ __forceinline__ T terminal_cost(const T* x, const RK& x_ref, const RC& Qdf, T w) {
+  T sq, dot;
+  state_terms(x, x_ref, Qdf, sq, dot);
+  return T(0.5) * sq + w * (T(1) - k_abs(dot));
+}
+
+template <typename T, int NF, int P>
+__global__ void __launch_bounds__(MAX_THREADS) line_search_kernel(const Args<T> a) {
+  constexpr int NU = 3 * NF;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const Plan& p = a.plan;
+  const int N = a.N, G = p.G, GP = p.GP, nc = a.nc;
+  const long long B = a.B;
+  const int lane = threadIdx.x & 31;
+  const int s = threadIdx.x >> p.lgGP;    // the lane's scenario in the block
+  const int q = threadIdx.x & (GP - 1);   // its lane in the scenario
+  const int k = q & (G - 1);              // its alpha
+  const int half = q >> p.lgG;            // which of the alpha's P lanes
+  const int base = lane & ~(GP - 1);      // the scenario's first lane in the warp
+  const long long b0 = static_cast<long long>(blockIdx.x) * p.S;
+  const bool in_range = b0 + s < B;
+  const long long b = in_range ? b0 + s : B - 1;  // lanes past the last scenario read the last one
+  const bool live = in_range && k < a.K;
+  const T alpha = a.alphas[k < a.K ? k : a.K - 1];
+  const bool priced = a.flags & FLAG_PRICE;
+  const bool w_per_knot = a.flags & FLAG_W_PER_KNOT, cb_per_knot = a.flags & FLAG_CB_PER_KNOT;
+  Stamp stamp(blockIdx.x == gridDim.x / 2 && threadIdx.x == 0);
+  stamp();
+  stamp();  // twice: their distance is what a stamp costs
+
+  // slot `slot` as this lane reads it (knot slots in buffer `buf`)
+  auto view = [&](int slot, int buf) {
+    const int at = p.at[slot] + (slot >= FIRST_KNOT_SLOT ? p.knot_at + buf * p.knot_values : 0);
+    return Sm<T>{sm + at + s * p.pitch[slot]};
+  };
+  // the block copies knot j's slab into buffer j & 1 (at j = N: x_ref, w)
+  auto stage_knot = [&](int j) {
+    T* to = sm + p.knot_at + (j & 1) * p.knot_values;
+#pragma unroll
+    for (int slot = FIRST_KNOT_SLOT; slot < SLOTS; ++slot) {
+      const int rows = p.rows[slot];
+      if (rows == 0 || (j == N && slot != SL_XREF && slot != SL_WK)) continue;
+      const View<T>& v = a.in[p.source[slot]];
+      stage(to + p.at[slot], v.p + static_cast<long long>(j) * rows * v.ld, v.ld, rows,
+            p.pitch[slot], p, b0, B);
+    }
+  };
+
+  // staged once: the constants, then knot 0; the model's constants by the
+  // scenario's lane 0
+#pragma unroll
+  for (int slot = 0; slot < FIRST_KNOT_SLOT; ++slot) {
+    if (slot == SL_MODEL || p.rows[slot] == 0) continue;
+    const View<T>& v = a.in[p.source[slot]];
+    stage(sm + p.at[slot], v.p, v.ld, p.rows[slot], p.pitch[slot], p, b0, B);
+  }
+  cp_async_commit();
+  stage_knot(0);
+  cp_async_commit();
+  if (in_range && q == 0) load_model<T, NF>(a, b, sm + p.at[SL_MODEL] + s * p.pitch[SL_MODEL]);
+  stamp();
+
+  const T h = column(a.in[IN_H], b)[0], rho = column(a.in[IN_RHO], b)[0];
+  const Sm<T> Qd = view(SL_QD, 0), Qdf = view(SL_QDF, 0), Rd = view(SL_RD, 0),
+              Cu = view(SL_CU, 0), model = view(SL_MODEL, 0);
+  T J = T(0);
+  if (priced) {
+    // The scenario's lanes price xs_bar and us_bar, lane q knots q, q+GP, ...
+    // (knot N: the terminal cost), the knots' rows from device memory and the
+    // constants from shared memory; every lane adds the stage costs in knot
+    // order, as a rollout does.
+    cp_async_wait_prior<1>();
+    __syncthreads();  // the constants have landed (knot 0 may still be on its way)
+    const Col<T> xs_bar = column(a.in[IN_XS], b), us_bar = column(a.in[IN_US], b),
+                 x_ref = column(a.in[IN_X_REF], b), u_ref = column(a.in[IN_U_REF], b),
+                 w = column(a.in[IN_W], b), cb = column(a.in[IN_CB], b),
+                 lam = column(a.in[IN_LAM], b);
+    const T w_const = view(SL_W, 0)[0];
+    T stages = T(0);
+    for (int j0 = 0; j0 <= N; j0 += GP) {
+      const int j = j0 + q;
+      T cost = T(0);
+      if (in_range && j <= N) {
+        T x[NX];
+#pragma unroll
+        for (int i = 0; i < NX; ++i) x[i] = xs_bar[static_cast<long long>(j) * NX + i];
+        if (j < N) {
+          T u[NU];
+#pragma unroll
+          for (int i = 0; i < NU; ++i) u[i] = us_bar[static_cast<long long>(j) * NU + i];
+          cost = stage_cost<T, NU>(x, u, x_ref.at(static_cast<long long>(j) * NX),
+                                   u_ref.at(static_cast<long long>(j) * NU), Qd, Rd,
+                                   w_per_knot ? w[j] : w_const, Cu,
+                                   cb.at(cb_per_knot ? static_cast<long long>(j) * nc : 0),
+                                   lam.at(static_cast<long long>(j) * nc), nc, rho);
+        } else {
+          cost = terminal_cost(x, x_ref.at(static_cast<long long>(N) * NX), Qdf,
+                               w_per_knot ? w[N] : w_const);
+        }
+      }
+      for (int i = 0; i < GP && j0 + i <= N; ++i) {
+        const T got = __shfl_sync(FULL, cost, base + i);
+        if (j0 + i < N)
+          stages = stages + got;
+        else
+          J = stages + got;
+      }
+    }
+  } else {
+    J = column(a.in[IN_J], b)[0];
+  }
+  stamp();
+
+  // The rollouts. Each alpha writes x at every knot and u at every stage to
+  // the trajectory slab: row e of scenario s, alpha k at traj[e·tst]. With
+  // two lanes an alpha both hold the whole x and u and every running sum.
+  T* traj = p.traj_at >= 0 ? sm + p.traj_at + s * G + k : a.scratch + b * G + k;
+  const long long tst = p.traj_at >= 0 ? static_cast<long long>(p.S) * G : B * G;
+  const bool keep = live && half == 0;
+  cp_async_wait_all();
+  __syncthreads();  // the constants, the model and knot 0 have landed
+  stamp();
+  T x[NX];
+  {
+    const Sm<T> xs0 = view(SL_XS, 0);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = xs0[i];
+  }
+  T stages = T(0);
+#pragma unroll 1
+  for (int j = 0; j < N; ++j) {
+    const int buf = j & 1;
+    if (j > 0) {
+      cp_async_wait_all();
+      __syncthreads();  // knot j has landed; every lane is done with knot j-1's buffer
+      stamp();
+    }
+    stage_knot(j + 1);
+    stamp();
+    if (P == 2 || in_range) {  // pairs shuffle: every lane takes part
+      const Sm<T> xb = view(SL_XS, buf), us_bar = view(SL_US, buf), Ks = view(SL_KS, buf),
+                  ds = view(SL_DS, buf);
+      T u[NU];
+      // δx = x ⊖ xs_bar[j]
+      T dx[NE];
+      {
+#pragma unroll
+        for (int i = 0; i < 3; ++i) dx[i] = x[i] - xb[i];
+        // δq = q_ref⁻¹ ⊗ q, then its Cayley coordinates dv / dw
+        const T w1 = xb[3], v1[3] = {-xb[4], -xb[5], -xb[6]};
+        const T w2 = x[3], v2[3] = {x[4], x[5], x[6]};
+        const T dw = w1 * w2 - ((v1[0] * v2[0] + v1[1] * v2[1]) + v1[2] * v2[2]);
+        const T cr[3] = {v1[1] * v2[2] - v1[2] * v2[1], v1[2] * v2[0] - v1[0] * v2[2],
+                         v1[0] * v2[1] - v1[1] * v2[0]};
+#pragma unroll
+        for (int i = 0; i < 3; ++i) dx[3 + i] = (w1 * v2[i] + w2 * v1[i] + cr[i]) / dw;
+#pragma unroll
+        for (int i = 6; i < NE; ++i) dx[i] = x[i + 1] - xb[i + 1];
+      }
+      // u = ū + α·d + K·δx
+      if constexpr (P == 2) {
+        inputs_pair<T, NU>(dx, alpha, us_bar, ds, Ks, half, G, u);
+      } else {
+#pragma unroll
+        for (int i = 0; i < NU; ++i) {
+          T kdx = T(0);
+#pragma unroll
+          for (int c = 0; c < NE; ++c) kdx = kdx + Ks[i * NE + c] * dx[c];
+          u[i] = us_bar[i] + alpha * ds[i] + kdx;
+        }
+      }
+      if (keep) {
+        const long long row = static_cast<long long>(j) * NX;
+#pragma unroll
+        for (int i = 0; i < NX; ++i) traj[(row + i) * tst] = x[i];
+        const long long urow = static_cast<long long>(N + 1) * NX + static_cast<long long>(j) * NU;
+#pragma unroll
+        for (int i = 0; i < NU; ++i) traj[(urow + i) * tst] = u[i];
+      }
+      const T stage = stage_cost<T, NU, P>(
+          x, u, view(SL_XREF, buf), view(SL_UREF, buf), Qd, Rd,
+          w_per_knot ? view(SL_WK, buf)[0] : view(SL_W, 0)[0], Cu,
+          cb_per_knot ? view(SL_CBK, buf) : view(SL_CB, 0), view(SL_LAM, buf), nc, rho, half, G);
+      stages = stages + stage;
+      midpoint_step<T, NF>(x, u, model, h);
+    }
+    stamp();
+  }
+  cp_async_wait_all();
+  __syncthreads();  // knot N's x_ref (and w) have landed
+  stamp();
+  T J_k = T(0);
+  if (in_range) {
+    const int buf = N & 1;
+    J_k = stages + terminal_cost(x, view(SL_XREF, buf), Qdf,
+                                 w_per_knot ? view(SL_WK, buf)[0] : view(SL_W, 0)[0]);
+    if (keep) {
+#pragma unroll
+      for (int i = 0; i < NX; ++i) traj[(static_cast<long long>(N) * NX + i) * tst] = x[i];
+    }
+  }
+  stamp();
+
+  // Armijo against the expected decrease, then the first passing alpha
+  const T dV1 = column(a.in[IN_DV1], b)[0], dV2 = column(a.in[IN_DV2], b)[0];
+  const T expected = -(alpha * dV1 + alpha * alpha * dV2);
+  bool ok = expected > T(0)
+                ? (J - J_k) / (expected < T(1e-30) ? T(1e-30) : expected) > T(1e-4)
+                : J_k < J + T(1e-12);
+  ok = ok && live && half == 0 && K2_ISFINITE(J_k);
+  const unsigned votes = __ballot_sync(FULL, ok);
+  const unsigned mine = G == 32 ? votes : (votes >> base) & ((1u << G) - 1u);
+  const bool accepted = mine != 0u;
+  const int first = accepted ? __ffs(mine) - 1 : 0;
+  const T J_first = __shfl_sync(FULL, J_k, base + first);
+  const T J_ls = accepted ? J_first : J;
+  const bool improved = accepted && J_ls < J;
+  const bool take = in_range && improved && !a.done[b];
+  int* sel = reinterpret_cast<int*>(sm + p.sel_at);
+  if (q == 0) {
+    sel[s] = take;
+    sel[p.S + s] = first;
+  }
+  if (in_range && q == 0) {
+    a.J_in[b] = J;
+    a.J_out[b] = take ? J_ls : J;
+    a.accepted[b] = accepted;
+    a.improved[b] = improved;
+  }
+  if (live && half == 0 && a.costs != nullptr) a.costs[static_cast<long long>(k) * B + b] = J_k;
+  stamp();
+  __syncthreads();  // every scenario's choice and trajectory are in place
+  stamp();
+
+  // The block writes xs and us, thread t scenario t mod S: the selected
+  // lane's trajectory, or xs_bar and us_bar where the step is not taken.
+  {
+    const int ws = threadIdx.x & (p.S - 1);
+    const long long wb = b0 + ws;
+    if (wb < B) {
+      const T* from = p.traj_at >= 0 ? sm + p.traj_at + ws * G + sel[p.S + ws]
+                                     : a.scratch + wb * G + sel[p.S + ws];
+      const long long rows_x = static_cast<long long>(N + 1) * NX;
+      const View<T> xs_bar = a.in[IN_XS], us_bar = a.in[IN_US];
+      const int e0 = threadIdx.x >> p.lgS, step = GP;
+      if (sel[ws]) {
+        copy_rows(a.xs + wb, B, from, tst, rows_x, e0, step);
+        copy_rows(a.us + wb, B, from + rows_x * tst, tst, static_cast<long long>(N) * NU, e0,
+                  step);
+      } else {
+        copy_rows(a.xs + wb, B, xs_bar.p + wb, xs_bar.ld, rows_x, e0, step);
+        copy_rows(a.us + wb, B, us_bar.p + wb, us_bar.ld, static_cast<long long>(N) * NU, e0,
+                  step);
+      }
+    }
+  }
+  stamp();
+}
+
+// The kernel's arguments from the wrapper's tables, with the launch's plan.
 template <typename T>
 Args<T> make_args(const void* const* in, const long long* ld, void* const* out, int N, int B,
-                  int K, int nc, int flags) {
+                  int K, int n_feet, int nc, int flags, int sms) {
   Args<T> a;
   for (int i = 0; i < INPUTS; ++i) a.in[i] = View<T>{static_cast<const T*>(in[i]), ld[i]};
-  a.alphas = static_cast<const T*>(in[INPUTS]);
-  a.done = static_cast<const unsigned char*>(in[INPUTS + 1]);
+  a.alphas = static_cast<const T*>(in[IN_ALPHAS]);
+  a.done = static_cast<const unsigned char*>(in[IN_DONE]);
+  a.scratch = static_cast<T*>(const_cast<void*>(in[IN_SCRATCH]));
   a.xs = static_cast<T*>(out[XS_OUT]);
   a.us = static_cast<T*>(out[US_OUT]);
   a.J_in = static_cast<T*>(out[J_IN_OUT]);
@@ -456,13 +951,9 @@ Args<T> make_args(const void* const* in, const long long* ld, void* const* out, 
   a.accepted = static_cast<unsigned char*>(out[ACCEPTED]);
   a.improved = static_cast<unsigned char*>(out[IMPROVED]);
   a.costs = static_cast<T*>(out[COSTS]);
-  a.N = N, a.B = B, a.K = K, a.G = group_lanes(K), a.nc = nc, a.flags = flags;
+  a.N = N, a.B = B, a.K = K, a.nc = nc, a.flags = flags;
+  a.plan = make_plan<T>(ld, N, B, K, 3 * n_feet, nc, flags, sms);
   return a;
-}
-
-// Blocks of THREADS lanes for B scenarios of G lanes each.
-inline int blocks_for(int B, int G) {
-  return static_cast<int>(((long long)B * G + THREADS - 1) / THREADS);
 }
 
 }  // namespace
@@ -477,24 +968,49 @@ extern "C" void line_search_table(int* out) {
 
 namespace {
 
+// The current card's multiprocessors (asked once a card).
+inline int multiprocessors() {
+  static int known[64] = {};
+  int device = 0, n = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= 64) return 132;
+  if (known[device] == 0) {
+    if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) != cudaSuccess || n < 1)
+      return 132;
+    known[device] = n;
+  }
+  return known[device];
+}
+
+template <typename T, int NF, int P>
+int launch_lanes(const Args<T>& a, void* stream) {
+  // Above 48 KB a block's dynamic shared memory has to be asked for; once.
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      line_search_kernel<T, NF, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(SMEM_LIMIT));
+  if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  line_search_kernel<T, NF, P><<<a.plan.blocks, a.plan.threads, a.plan.bytes,
+                                 static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int NF>
 int launch_feet(const Args<T>& a, void* stream) {
-  line_search_kernel<T, NF><<<blocks_for(a.B, a.G), THREADS, 0,
-                              static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return a.plan.P == 2 ? launch_lanes<T, NF, 2>(a, stream) : launch_lanes<T, NF, 1>(a, stream);
 }
 
 template <typename T>
 int launch(const void* const* in, const long long* ld, void* const* out, int N, int B, int K,
            int n_feet, int nc, int flags, void* stream) {
-  if (N < 1 || B < 1 || K < 1 || K > 32 || nc < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const Args<T> a = make_args<T>(in, ld, out, N, B, K, nc, flags);
+  if (N < 1 || B < 1 || K < 1 || K > 32 || nc < 0 || n_feet < 1 || n_feet > 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args<T> a = make_args<T>(in, ld, out, N, B, K, n_feet, nc, flags, multiprocessors());
+  if (a.plan.bytes > SMEM_LIMIT || (a.plan.traj_at < 0 && a.scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (n_feet) {
     case 1: return launch_feet<T, 1>(a, stream);
     case 2: return launch_feet<T, 2>(a, stream);
     case 3: return launch_feet<T, 3>(a, stream);
-    case 4: return launch_feet<T, 4>(a, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: return launch_feet<T, 4>(a, stream);
   }
 }
 
@@ -511,5 +1027,20 @@ extern "C" int line_search_f64(const void* const* in, const long long* ld, void*
                                void* stream) {
   return launch<double>(in, ld, out, N, B, K, n_feet, nc, flags, stream);
 }
+
+#ifdef K2_PLAN_OVERRIDE
+// The (S, P) of the following launches (0: the policy's).
+extern "C" void line_search_override(int S, int P) {
+  override_S = S;
+  override_P = P;
+}
+#endif
+
+#ifdef K2_PHASE_CLOCKS
+// The first n stamps of the last launch, to host memory (synchronises).
+extern "C" int line_search_clocks(long long* out, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(out, phase_clocks, sizeof(long long) * n));
+}
+#endif
 
 #endif  // __CUDACC__

@@ -13,14 +13,15 @@ Ks (N·nu·12 values a scenario) are most of what the function reads, and the
 K rollouts' operations take less time at the card's peak. Each rollout is a
 serial chain of N knots, so at small B latency sets the time.
 
-Design (csrc/line_search.cu): a thread per (alpha, scenario), the G lanes of
-a scenario (G the least power of two >= K) side by side in one warp. Each
-lane rolls its alpha with the state, the input and the running cost in
-registers; the first passing alpha comes from a `__ballot_sync`, its cost by
-`__shfl_sync`; the selected lane then runs its rollout again and writes it
-(one loop body for both passes, so the same bits), and where the step is
-not taken the scenario's lanes copy the old trajectory through. No slab of
-every alpha's trajectory is written.
+Design (csrc/line_search.cu): a thread per (alpha, scenario), or two below
+a full wave of blocks, a scenario's lanes side by side in a warp; each block
+stages its scenarios' constants once and each knot's slab (xs_bar, us_bar,
+K, d, the references, the multipliers) double-buffered into shared memory
+with cp.async while its lanes roll the knot before; the pricing of xs_bar
+spread over the scenario's lanes; every alpha's rollout kept as it is rolled
+(in shared memory where it fits, else in a device-memory scratch this
+wrapper allocates), and the selected one, or the old trajectory, written by
+the whole block. The first passing alpha comes from a `__ballot_sync`.
 
 Which spec runs it is a tag on the model (`FleetModelSpec.line_search ==
 TAG`, set by `control.quat_mpc.FLEET_MODEL_SPEC` and carried from
@@ -54,7 +55,7 @@ NX = 13
 NE = 12
 MAX_FEET = 4
 MAX_ALPHAS = 32  # the lanes of a warp
-INPUTS = 24  # the kernel's input table (enum Input), then the alphas and done
+INPUTS = 24  # the kernel's input table (enum Input), then the alphas, done and the scratch
 OUTPUTS = 7
 _W_PER_KNOT, _CB_PER_KNOT, _PRICE = 1, 2, 4
 
@@ -73,9 +74,11 @@ def build():
     return _build.build(SOURCE, FLAGS)
 
 
-@functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+def bind(path) -> ctypes.CDLL:
+    """A build of the kernel (this source with other flags, or another source
+    with the same C interface) loaded, its entries' argument types set and
+    its tables' sizes checked against the wrapper's."""
+    lib = ctypes.CDLL(str(path))
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
@@ -83,9 +86,14 @@ def _lib() -> ctypes.CDLL:
     table = (ctypes.c_int * 2)()
     lib.line_search_table(table)
     if tuple(table) != (INPUTS, OUTPUTS):
-        raise RuntimeError(f"{SOURCE.name} takes {tuple(table)} inputs and outputs, the "
+        raise RuntimeError(f"{path} takes {tuple(table)} inputs and outputs, the "
                            f"wrapper {(INPUTS, OUTPUTS)}")
     return lib
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    return bind(build())
 
 
 def flops_per_knot(n_feet: int, nc: int) -> int:
@@ -129,27 +137,52 @@ def work(N: int, B: int, K: int, n_feet: int, nc: int, dtype, priced: bool = Fal
 def _operand(t, lead, B, name, like):
     """``t`` as the kernel reads it: contiguous, its batch axis B or 1 (a
     value every scenario shares; an axis of B broadcast with stride 0 is cut
-    to 1), with the batch extent. Raises on another shape, type or device."""
-    if not isinstance(t, torch.Tensor) or tuple(t.shape[:-1]) != tuple(lead) \
-            or t.dim() != len(lead) + 1 or t.shape[-1] not in (1, B):
-        shape = tuple(t.shape) if isinstance(t, torch.Tensor) else type(t).__name__
+    to 1), with the batch extent. Raises on another shape, type or device.
+    ``like``: (dtype, device) every operand shares."""
+    shape = t.shape if isinstance(t, torch.Tensor) else None
+    if shape is None or len(shape) != len(lead) + 1 or shape[-1] not in (1, B) \
+            or shape[:-1] != lead:
+        shape = tuple(shape) if shape is not None else type(t).__name__
         raise ValueError(f"{name} must have shape {tuple(lead)} + (B|1,) with B = {B}, got {shape}")
-    if t.dtype != like.dtype or t.device != like.device:
-        raise ValueError(f"{name} is {t.dtype} on {t.device}; xs is {like.dtype} on {like.device}")
-    if t.shape[-1] == B and B > 1 and t.stride(-1) == 0:
-        t = t[..., :1]
-    return t.contiguous(), t.shape[-1]
+    return _layout(t, B, name, like)
+
+
+def _exact(t, shape, name, like):
+    """An operand with its batch axis always B: ``shape`` exactly."""
+    if not isinstance(t, torch.Tensor) or t.shape != shape:
+        got = tuple(t.shape) if isinstance(t, torch.Tensor) else type(t).__name__
+        raise ValueError(f"{name} must have shape {tuple(shape)}, got {got}")
+    return _layout(t, shape[-1], name, like)
 
 
 def _scalar(t, B, name, like):
     """A value a scenario (h, mass, ρ, ...): one shared value of any shape, or
     B values."""
-    if isinstance(t, torch.Tensor) and t.numel() == 1:
-        return _operand(t.reshape(1), (), B, name, like)
-    if isinstance(t, torch.Tensor) and t.numel() == B and t.shape[-1] == B:
-        return _operand(t.reshape(B), (), B, name, like)
+    if isinstance(t, torch.Tensor):
+        n = t.numel()
+        if n == 1:
+            return _layout(t if t.dim() == 1 else t.reshape(1), B, name, like)
+        if n == B and t.shape[-1] == B:
+            return _layout(t if t.dim() == 1 else t.reshape(B), B, name, like)
     shape = tuple(t.shape) if isinstance(t, torch.Tensor) else type(t).__name__
     raise ValueError(f"{name} must be a tensor of one value or of B = {B}, got {shape}")
+
+
+def _layout(t, B, name, like):
+    """The type and device checks and the batch extent of an operand whose
+    shape is right."""
+    if t.dtype != like[0] or t.device != like[1]:
+        raise ValueError(f"{name} is {t.dtype} on {t.device}; xs is {like[0]} on {like[1]}")
+    if t.is_contiguous():  # a batch axis of B > 1 broadcast with stride 0 is not
+        return t, t.shape[-1]
+    if t.shape[-1] == B and B > 1 and t.stride(-1) == 0:
+        t = t[..., :1]
+    return t.contiguous(), t.shape[-1]
+
+
+# How check_inputs takes each operand: its whole shape with the batch axis
+# B, its leading axes with a batch axis of B or 1, or one value a scenario.
+_EXACT, _LEAD, _SCALAR = 0, 1, 2
 
 
 def check_inputs(spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas):
@@ -184,35 +217,41 @@ def check_inputs(spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas
     nc = prob.Cu.shape[0]
     w_per_knot = prob.w.dim() == 2
     cb_per_knot = prob.cb.dim() == 3
-    op = lambda t, lead, name: _operand(t, lead, B, name, xs)
-    sc = lambda t, name: _scalar(t, B, name, xs)
-    exact = lambda t, shape, name: _exact(t, shape, name, xs)
-    table = [
-        exact(xs, (N + 1, NX, B), "xs"),
-        exact(us, (N, nu, B), "us"),
-        exact(Ks, (N, nu, NE, B), "Ks"),
-        exact(ds, (N, nu, B), "ds"),
-        op(prob.x_ref, (N + 1, NX), "x_ref"),
-        op(prob.u_ref, (N + 1, nu), "u_ref"),
-        op(prob.Qd, (NX,), "Qd"),
-        op(prob.Qd if prob.Qdf is None else prob.Qdf, (NX,), "Qdf"),
-        op(prob.Rd, (nu,), "Rd"),
-        op(prob.w, (N + 1,), "w") if w_per_knot else sc(prob.w, "w"),
-        op(prob.Cu, (nc, nu), "Cu"),
-        op(prob.cb, (N + 1, nc), "cb") if cb_per_knot else op(prob.cb, (nc,), "cb"),
-        op(lam[:N], (N, nc), "lam"),
-        op(p.foot_pos, (n_feet, 3), "foot_pos"),
-        op(p.inertia, (3, 3), "inertia"),
-        sc(p.mass, "mass"),
-        op(p.com_offset, (3,), "com_offset"),
-        sc(p.com_mass, "com_mass"),
-        op(p.rot_body_to_world, (3, 3), "rot_body_to_world"),
-        sc(prob.h, "h"),
-        sc(rho, "rho"),
-        (None, 1) if J is None else exact(J, (B,), "J"),
-        exact(dV1, (B,), "dV1"),
-        exact(dV2, (B,), "dV2"),
-    ]
+    like = (xs.dtype, xs.device)
+    operands = (
+        (xs, _EXACT, (N + 1, NX, B), "xs"),
+        (us, _EXACT, (N, nu, B), "us"),
+        (Ks, _EXACT, (N, nu, NE, B), "Ks"),
+        (ds, _EXACT, (N, nu, B), "ds"),
+        (prob.x_ref, _LEAD, (N + 1, NX), "x_ref"),
+        (prob.u_ref, _LEAD, (N + 1, nu), "u_ref"),
+        (prob.Qd, _LEAD, (NX,), "Qd"),
+        (prob.Qd if prob.Qdf is None else prob.Qdf, _LEAD, (NX,), "Qdf"),
+        (prob.Rd, _LEAD, (nu,), "Rd"),
+        (prob.w, _LEAD, (N + 1,), "w") if w_per_knot else (prob.w, _SCALAR, None, "w"),
+        (prob.Cu, _LEAD, (nc, nu), "Cu"),
+        (prob.cb, _LEAD, (N + 1, nc) if cb_per_knot else (nc,), "cb"),
+        (lam if lam.shape[0] == N else lam[:N], _LEAD, (N, nc), "lam"),
+        (p.foot_pos, _LEAD, (n_feet, 3), "foot_pos"),
+        (p.inertia, _LEAD, (3, 3), "inertia"),
+        (p.mass, _SCALAR, None, "mass"),
+        (p.com_offset, _LEAD, (3,), "com_offset"),
+        (p.com_mass, _SCALAR, None, "com_mass"),
+        (p.rot_body_to_world, _LEAD, (3, 3), "rot_body_to_world"),
+        (prob.h, _SCALAR, None, "h"),
+        (rho, _SCALAR, None, "rho"),
+        (J, _EXACT, (B,), "J"),
+        (dV1, _EXACT, (B,), "dV1"),
+        (dV2, _EXACT, (B,), "dV2"),
+    )
+    table = []
+    for t, kind, shape, name in operands:
+        if kind == _EXACT:
+            table.append((None, 1) if t is None and name == "J" else _exact(t, shape, name, like))
+        elif kind == _LEAD:
+            table.append(_operand(t, shape, B, name, like))
+        else:
+            table.append(_scalar(t, B, name, like))
     if tuple(done.shape) != (B,) or done.dtype != torch.bool or done.device != xs.device:
         raise ValueError(f"done must be ({B},) bool on {xs.device}, got {tuple(done.shape)} "
                          f"{done.dtype} on {done.device}")
@@ -224,32 +263,44 @@ def check_inputs(spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas
     return table, (alphas.contiguous(), done.contiguous()), (N, B, K, n_feet, nc, flags)
 
 
-def _exact(t, shape, name, like):
-    """An operand with its batch axis always B: ``shape`` exactly."""
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    return _operand(t, shape[:-1], shape[-1], name, like)
+def group_lanes(K):
+    """The lanes a scenario takes in the kernel: the least power of two >= K."""
+    return 1 << (K - 1).bit_length()
 
 
 def new_outputs(N, B, K, n_feet, like, with_costs):
     """The kernel's outputs, uninitialised: xs (N+1, 13, B), us (N, nu, B),
     J and J_out (B,), accepted and improved (B,) bool, and the rollouts'
-    costs (K, B) or None."""
-    new = lambda *shape, dtype=like.dtype: torch.empty(shape, dtype=dtype, device=like.device)
-    return (new(N + 1, NX, B), new(N, 3 * n_feet, B), new(B), new(B),
-            new(B, dtype=torch.bool), new(B, dtype=torch.bool), new(K, B) if with_costs else None)
+    costs (K, B) or None, carved out of one allocation of the type and one
+    of bytes; then the trajectory scratch ((N+1)·13 + N·nu rows x B x G
+    values, G = group_lanes(K)), where the kernel keeps every alpha's rollout
+    when its block's shared memory cannot."""
+    nu = 3 * n_feet
+    sizes = [(N + 1) * NX * B, N * nu * B, B, B, K * B if with_costs else 0,
+             ((N + 1) * NX + N * nu) * B * group_lanes(K)]
+    xs, us, J, J_out, costs, scratch = torch.empty(
+        sum(sizes), dtype=like.dtype, device=like.device).split(sizes)
+    accepted, improved = torch.empty(2 * B, dtype=torch.bool, device=like.device).split(B)
+    return (xs.view(N + 1, NX, B), us.view(N, nu, B), J, J_out, accepted, improved,
+            costs.view(K, B) if with_costs else None), scratch
+
+
+_IN_TABLE = ctypes.c_void_p * (INPUTS + 3)
+_LD_TABLE = ctypes.c_longlong * INPUTS
+_OUT_TABLE = ctypes.c_void_p * OUTPUTS
 
 
 def c_tables(table, extras, outputs):
     """The C interface's three tables: the input pointers (the table's, then
-    the alphas' and done's), the inputs' batch extents and the output
-    pointers (null for costs not asked for)."""
-    ptr = lambda t: None if t is None else t.data_ptr()
-    return (
-        (ctypes.c_void_p * (INPUTS + 2))(*(ptr(t) for t, _ in table), *map(ptr, extras)),
-        (ctypes.c_longlong * INPUTS)(*(ld for _, ld in table)),
-        (ctypes.c_void_p * OUTPUTS)(*map(ptr, outputs)),
-    )
+    the alphas', done's and the scratch's), the inputs' batch extents and the
+    output pointers (null for costs not asked for)."""
+    pointers, extents = [], []
+    for t, ld in table:
+        pointers.append(None if t is None else t.data_ptr())
+        extents.append(ld)
+    pointers.extend(t.data_ptr() for t in extras)
+    return (_IN_TABLE(*pointers), _LD_TABLE(*extents),
+            _OUT_TABLE(*[None if t is None else t.data_ptr() for t in outputs]))
 
 
 def line_search(spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas,
@@ -266,18 +317,28 @@ def line_search(spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas,
                                alphas, with_costs=with_costs)
     if device.type != "cuda":
         raise ValueError(f"line_search runs on cpu or cuda tensors, not {device}")
-    table, (alphas, done), (N, B, K, n_feet, nc, flags) = check_inputs(
-        spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas)
-    outputs = new_outputs(N, B, K, n_feet, xs, with_costs)
-    tables = c_tables(table, (alphas, done), outputs)
-    fn = getattr(_lib(), _ENTRY[xs.dtype])
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*tables, N, B, K, n_feet, nc, flags, stream)
-    if err != 0:
-        raise RuntimeError(f"line_search kernel launch failed with CUDA error {err}")
+    outputs = launch(_lib(), spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas,
+                     with_costs)
     line_search.launches += 1
     return outputs if with_costs else outputs[:6]
+
+
+def launch(lib, spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas, with_costs):
+    """One launch of the kernel in ``lib`` (`bind`) on the current stream,
+    uncounted: (xs, us, J, J_out, accepted, improved, costs or None)."""
+    table, (alphas, done), (N, B, K, n_feet, nc, flags) = check_inputs(
+        spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas)
+    outputs, scratch = new_outputs(N, B, K, n_feet, xs, with_costs)
+    tables = c_tables(table, (alphas, done, scratch), outputs)
+    fn = getattr(lib, _ENTRY[xs.dtype])
+    if xs.device.index == torch.cuda.current_device():
+        err = fn(*tables, N, B, K, n_feet, nc, flags, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(xs.device):
+            err = fn(*tables, N, B, K, n_feet, nc, flags, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"line_search kernel launch failed with CUDA error {err}")
+    return outputs
 
 
 line_search.launches = 0

@@ -10,7 +10,15 @@ with batch stride 0) and the two-footed humanoid's; K = 8 and 12 (8 and 16
 lanes a scenario), N = 6, 10 and 20, B with a ragged last block; and, on
 the standing problem, an alpha whose rollout overflows to Inf / NaN, a
 scenario that accepts no alpha, `done` scenarios, per-knot w and cb with a
-terminal weight Qdf, and one scenario past a whole warp of 32 alphas.
+terminal weight Qdf, and one scenario past a whole warp of 32 alphas. The
+blocks are planned as on an H100 (132 SMs: two lanes an alpha at these
+small B) and, where named, for one SM (the plans of a full card: one lane
+an alpha, 32 or 16 scenarios a block). What the staged design adds: a
+ragged last block over several blocks, leaves of batch extent 1 staged
+once a block beside per-scenario ones, trajectories kept in shared memory
+or in the device-memory scratch, the selected and the copied-through
+trajectories written by one block, and a priced J bit-equal to every J_k
+where each rollout reproduces xs_bar (the pricing sums as the rollouts do).
 
 f64 agrees to 1e-10 of scale (the per-alpha costs J_k, then xs, us and J).
 f32 is held to the f32 plain version: J_k to 1e-4 of max(|J_k|, |J|), then
@@ -48,14 +56,17 @@ _HARNESS = r"""
 #include "cuda_emulation.h"
 #include "line_search.cu"
 
+
 template <typename T, int NF>
 static int run_feet(const Args<T>& a) {
-  return emulate_blocks(blocks_for(a.B, a.G), THREADS, line_search_kernel<T, NF>, a);
+  return a.plan.P == 2
+             ? emulate_blocks(a.plan.blocks, a.plan.threads, line_search_kernel<T, NF, 2>, a)
+             : emulate_blocks(a.plan.blocks, a.plan.threads, line_search_kernel<T, NF, 1>, a);
 }
 template <typename T>
 static int run(const void* const* in, const long long* ld, void* const* out, int N, int B, int K,
-               int n_feet, int nc, int flags) {
-  const Args<T> a = make_args<T>(in, ld, out, N, B, K, nc, flags);
+               int n_feet, int nc, int flags, int sms) {
+  const Args<T> a = make_args<T>(in, ld, out, N, B, K, n_feet, nc, flags, sms);
   switch (n_feet) {
     case 1: return run_feet<T, 1>(a);
     case 2: return run_feet<T, 2>(a);
@@ -64,15 +75,24 @@ static int run(const void* const* in, const long long* ld, void* const* out, int
   }
   return 2;
 }
+// sms: the multiprocessors the blocks are planned for (an H100's 132 as on
+// the card; 1 for the plans of a full card at a small B)
 extern "C" int emulated_f32(const void* const* in, const long long* ld, void* const* out,
-                            int N, int B, int K, int n_feet, int nc, int flags) {
-  return run<float>(in, ld, out, N, B, K, n_feet, nc, flags);
+                            int N, int B, int K, int n_feet, int nc, int flags, int sms) {
+  return run<float>(in, ld, out, N, B, K, n_feet, nc, flags, sms);
 }
 extern "C" int emulated_f64(const void* const* in, const long long* ld, void* const* out,
-                            int N, int B, int K, int n_feet, int nc, int flags) {
-  return run<double>(in, ld, out, N, B, K, n_feet, nc, flags);
+                            int N, int B, int K, int n_feet, int nc, int flags, int sms) {
+  return run<double>(in, ld, out, N, B, K, n_feet, nc, flags, sms);
 }
-extern "C" int block_threads() { return THREADS; }
+// the launch's plan: lanes an alpha, scenarios a block, and 1 where it keeps
+// its trajectories in shared memory, 0 in the scratch
+extern "C" void plan_of(int is_f64, const void* const* in, const long long* ld, void* const* out,
+                        int N, int B, int K, int n_feet, int nc, int flags, int sms, int* plan) {
+  const Plan p = is_f64 ? make_args<double>(in, ld, out, N, B, K, n_feet, nc, flags, sms).plan
+                        : make_args<float>(in, ld, out, N, B, K, n_feet, nc, flags, sms).plan;
+  plan[0] = p.P, plan[1] = p.S, plan[2] = p.traj_at >= 0;
+}
 """
 
 
@@ -91,30 +111,48 @@ def emulated(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(lib))
     for name in ("emulated_f32", "emulated_f64"):
-        getattr(lib, name).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+        getattr(lib, name).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
         getattr(lib, name).restype = ctypes.c_int
-    lib.block_threads.restype = ctypes.c_int
     lib.line_search_table.argtypes = [ctypes.c_void_p]
+    lib.plan_of.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
     return lib
 
 
-def _emulated(lib, spec, prob, kw):
+SMS = 132  # an H100's multiprocessors: the blocks planned as on the card
+
+
+def _emulated(lib, spec, prob, kw, in_shared=None, sms=SMS):
     """The wrapper's launch with the emulated kernel in place of the card's:
     (xs, us, J, J_out, accepted, improved, costs); the outputs start as NaN /
-    True so that anything the kernel leaves unwritten shows."""
+    True so that anything the kernel leaves unwritten shows. ``in_shared``:
+    where the launch must keep its trajectories (True: shared memory, False:
+    the device-memory scratch), or None; ``sms``: the multiprocessors its
+    blocks are planned for."""
     table, extras, dims = k2.check_inputs(spec, prob, **kw)
-    outputs = k2.new_outputs(*dims[:4], kw["xs"], True)
-    for t in outputs:
+    outputs, scratch = k2.new_outputs(*dims[:4], kw["xs"], True)
+    for t in (*outputs, scratch):
         t.fill_(True if t.dtype == torch.bool else float("nan"))
-    fn = lib.emulated_f64 if kw["xs"].dtype == torch.float64 else lib.emulated_f32
-    assert fn(*k2.c_tables(table, extras, outputs), *dims) == 0
+    is_f64 = kw["xs"].dtype == torch.float64
+    tables = k2.c_tables(table, (*extras, scratch), outputs)
+    if in_shared is not None:
+        assert _plan(lib, is_f64, tables, dims, sms)[2] == in_shared
+    fn = lib.emulated_f64 if is_f64 else lib.emulated_f32
+    assert fn(*tables, *dims, sms) == 0
     return outputs
 
 
-def _hold(lib, spec, prob, kw, what):
+def _plan(lib, is_f64, tables, dims, sms):
+    """(lanes an alpha, scenarios a block, trajectories in shared memory)."""
+    plan = (ctypes.c_int * 3)()
+    lib.plan_of(is_f64, *tables, *dims, sms, plan)
+    return tuple(plan)
+
+
+def _hold(lib, spec, prob, kw, what, in_shared=None, sms=SMS):
     """The emulated kernel against the plain version, as the card's check holds it."""
     dtype = kw["xs"].dtype
-    got = _emulated(lib, spec, prob, kw)
+    got = _emulated(lib, spec, prob, kw, in_shared, sms)
     want = k2.line_search_ref(spec, prob, **kw, with_costs=True)
     res = k2.compare(got, want, kw["dV1"], kw["dV2"], kw["alphas"], RTOL[dtype])
     assert res["nonfinite_same"], f"{what}: the costs are non-finite in other places"
@@ -195,3 +233,123 @@ def test_emulated_kernel_at_a_warp_of_alphas(emulated):
     """K = 32: one scenario a warp, the ballot's whole mask."""
     spec, prob, kw = examples.line_search_case("standing", 3, torch.float64, "cpu", 6, 32)
     _hold(emulated, spec, prob, kw, "K = 32")
+
+
+def _both_ways(kw):
+    """The inputs with J given, then with J None (priced by the kernel)."""
+    return (("J_given", kw), ("J_priced", {**kw, "J": None}))
+
+
+def _plan_for(lib, spec, prob, kw, sms):
+    """The plan the kernel takes for these inputs (`_plan`)."""
+    table, extras, dims = k2.check_inputs(spec, prob, **kw)
+    outputs, scratch = k2.new_outputs(*dims[:4], kw["xs"], True)
+    tables = k2.c_tables(table, (*extras, scratch), outputs)
+    return _plan(lib, kw["xs"].dtype == torch.float64, tables, dims, sms)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("batch", [36, 34, 33])
+@pytest.mark.parametrize("sms", [SMS, 1], ids=["132_SMs", "1_SM"])
+def test_emulated_kernel_with_a_ragged_last_block(emulated, dtype, batch, sms):
+    """More scenarios than a block holds, the last block ragged: planned for
+    an H100 (132 SMs: two lanes an alpha, 8 scenarios a block, the
+    trajectories in shared memory) and for one SM (the plans of a full card:
+    one lane an alpha, 32 scenarios a block in f32 and 16 in f64, the
+    trajectories in the device-memory scratch)."""
+    spec, prob, kw = examples.line_search_case("standing", batch, dtype, "cpu", 6, 8)
+    full = 32 if dtype == torch.float32 else 16
+    assert _plan_for(emulated, spec, prob, kw, sms) == ((2, 8, 1) if sms == SMS else (1, full, 0))
+    for how, kw_run in _both_ways(kw):
+        _hold(emulated, spec, prob, kw_run, f"B={batch} {how}", sms=sms)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_emulated_kernel_with_leaves_of_batch_extent_one(emulated, dtype):
+    """Leaves every scenario shares (batch extent 1: staged once a block, one
+    column every scenario reads) beside leaves per scenario, over blocks:
+    the golden fixture (references, weights, Cu and parameters shared) at
+    B = 40, and the standing problem at B = 36 with x_ref, u_ref, Cu and the
+    multipliers cut to one shared column."""
+    spec, prob, kw = examples.line_search_case("fixture", 40, dtype, "cpu", 20, 12)
+    for how, kw_run in _both_ways(kw):
+        _hold(emulated, spec, prob, kw_run, f"fixture B=40 {how}")
+    spec, prob, kw = examples.line_search_case("standing", 36, dtype, "cpu", 6, 8)
+    prob = prob._replace(x_ref=prob.x_ref[..., :1], u_ref=prob.u_ref[..., :1],
+                         Cu=prob.Cu[..., :1])
+    kw = examples.line_search_inputs(spec, prob, 8)
+    kw["lam"] = torch.full_like(kw["lam"][..., :1], 0.5)
+    table, _, _ = k2.check_inputs(spec, prob, **kw)
+    assert [ld for _, ld in table[4:6]] == [1, 1] and table[10][1] == 1 and table[12][1] == 1
+    for how, kw_run in _both_ways(kw):
+        _hold(emulated, spec, prob, kw_run, f"standing B=36, shared leaves {how}")
+
+
+@pytest.mark.parametrize(
+    "dtype,batch,horizon,n_alphas,sms,in_shared",
+    [
+        (torch.float64, 8, 20, 32, SMS, False),  # 4 scenarios x 32 lanes: 525 KB of trajectories
+        (torch.float32, 13, 10, 12, 1, False),   # 16 scenarios x 16 lanes: 269 KB
+        (torch.float32, 13, 10, 12, SMS, True),  # 4 scenarios x 16 lanes: 67 KB
+        (torch.float64, 3, 10, 8, SMS, True),    # 4 scenarios x 8 lanes: 67 KB
+        (torch.float32, 1, 6, 12, SMS, True),    # the hardware tick's shape
+    ],
+    ids=["f64-N20-K32-B8", "f32-N10-K12-B13-1SM", "f32-N10-K12-B13", "f64-N10-K8-B3",
+         "f32-N6-K12-B1"],
+)
+def test_emulated_kernel_keeps_trajectories_where_they_fit(emulated, dtype, batch, horizon,
+                                                          n_alphas, sms, in_shared):
+    """Each alpha's rollout goes to a slab in shared memory where it fits
+    beside the staging and every block has an SM of its own, else to the
+    device-memory scratch; both ways the selected one is written."""
+    spec, prob, kw = examples.line_search_case("standing", batch, dtype, "cpu", horizon, n_alphas)
+    for how, kw_run in _both_ways(kw):
+        _hold(emulated, spec, prob, kw_run, f"B={batch} K={n_alphas} {how}", in_shared, sms)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_emulated_pricing_sums_as_the_rollouts_do(emulated, dtype):
+    """With no feedback and no step (Ks = 0, ds = 0) every alpha's rollout
+    is the open-loop rollout of us_bar; where xs_bar is the device code's own
+    rollout of it, each rollout reproduces xs_bar bit for bit, and the J the
+    kernel prices from xs_bar and us_bar (its lanes taking different knots)
+    must equal every J_k bit for bit: both sums in knot order, alike."""
+    spec, prob, kw = examples.line_search_case("standing", 11, dtype, "cpu", 10, 8)
+    kw = {**kw, "Ks": torch.zeros_like(kw["Ks"]), "ds": torch.zeros_like(kw["ds"]),
+          "dV1": torch.full_like(kw["dV1"], -1.0), "dV2": torch.zeros_like(kw["dV2"]),
+          "lam": torch.full_like(kw["lam"], 0.25)}
+    rolled = _emulated(emulated, spec, prob, {**kw, "J": torch.full_like(kw["J"], 1e30)})
+    assert bool(rolled[5].all()), "every scenario takes the step below J = 1e30"
+    assert torch.equal(rolled[1], kw["us"]), "u = ū + 0·d + 0·δx is ū"
+    got = _emulated(emulated, spec, prob, {**kw, "xs": rolled[0], "J": None})
+    J, costs = got[2], got[6]
+    for k in range(costs.shape[0]):
+        assert torch.equal(costs[k], J), f"alpha {k}: J_k differs from the priced J"
+    assert torch.equal(got[0], rolled[0]) and torch.equal(got[1], kw["us"])
+
+
+@pytest.mark.parametrize("dtype,batch,n_alphas,sms,in_shared",
+                         [(torch.float64, 6, 8, SMS, True), (torch.float64, 12, 8, 1, False),
+                          (torch.float32, 8, 8, SMS, True), (torch.float32, 8, 20, 1, False)],
+                         ids=["f64-B6-shared", "f64-B12-scratch", "f32-B8-shared",
+                              "f32-B8-K20-scratch"])
+def test_emulated_block_writes_taken_and_copied_scenarios(emulated, dtype, batch, n_alphas, sms,
+                                                         in_shared):
+    """One block whose scenarios take the step or not: done (0, 3), no alpha
+    accepted (4), the rest taking their first passing alpha. The block
+    writes the selected rollouts (against the plain version) and copies
+    xs_bar and us_bar through bit for bit where nothing is taken."""
+    spec, prob, kw = examples.line_search_case("standing", batch, dtype, "cpu", 10, n_alphas)
+    kw["J"] = kw["J"].clone()
+    kw["J"][4] = -1e3
+    kw["done"][[0, 3]] = True
+    assert _plan_for(emulated, spec, prob, kw, sms)[1] >= batch, "one block"
+    got, want, _ = _hold(emulated, spec, prob, kw, f"B={batch} mixed", in_shared, sms)
+    taken = want[5] & ~kw["done"]
+    assert taken.tolist() == [b not in (0, 3, 4) for b in range(batch)]
+    for b in range(batch):
+        if not bool(taken[b]):
+            assert torch.equal(got[0][..., b], kw["xs"][..., b])
+            assert torch.equal(got[1][..., b], kw["us"][..., b])
+        else:
+            assert not torch.equal(got[0][..., b], kw["xs"][..., b])

@@ -15,7 +15,11 @@ Prints the card's name and power limit, then one JSON object:
   f32) at B=4096: p50 / min / max ms of 10 steps after 2 warm-ups, each
   ending in a synchronise, and the device operations of one traced step;
 - the walking RTI fleet's tick (N=10, 1 x 3, 8 alphas, f32, B=4096, 0.3
-  m/s): the same, over 10 ticks after 3 settle ticks.
+  m/s): the same, over 10 ticks after 3 settle ticks;
+- K2, the line search, alone at the fleet step's shape (f32, N=10, 8
+  alphas, B=4096): the host's time in one call of its wrapper (mean of 100
+  calls, no synchronise) and the kernel's by events around a replayed graph
+  of 50 launches.
 It uses only functions the port has had since its hardware loop was graphed,
 and `chip_smoke.py`'s helpers of the same checkout.
 """
@@ -125,6 +129,18 @@ def walking_tick(device):
     return {"tick_ms_p50_min_max": _ms(times), **_trace(tick)}
 
 
+def line_search(device):
+    import chip_smoke as cs
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.kernels import line_search as k2
+
+    spec, prob, kw = examples.line_search_case("standing", FLEET_B, torch.float32, device, 10, 8)
+    launch = lambda: k2.line_search(spec, prob, **kw)
+    launch()
+    return {"host_ms_a_call": cs._enqueue_time(launch) * 1e3,
+            "kernel_ms": cs._graph_time(launch, reps=50) * 1e3}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("tick_clock: no CUDA device", file=sys.stderr)
@@ -141,6 +157,7 @@ def main() -> int:
         "hardware_tick_h8_2x3": hardware_tick(device, 8, 2, 3),
         "fleet_step_2x5_B4096": fleet_step(device),
         "walking_tick_1x3_B4096": walking_tick(device),
+        "line_search_f32_N10_K8_B4096": line_search(device),
     }
     out["wall_s"] = time.perf_counter() - t0
     print(json.dumps(out))
