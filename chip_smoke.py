@@ -14,7 +14,7 @@ non-zero before the last line):
 2. build: compiles the CUDA kernels from `quaternion_mpc_tpu_torch/csrc/`,
    one nvcc per source, all at once, and prints what ptxas reports of each
    (registers, stack, spills); K1 must not spill, nor K4 in f32, nor K7 in
-   f32 or f64, nor K2's sixteen instantiations;
+   f32 or f64, nor K2's 52 kernels;
 3. kernel vs plain: K1 (`riccati_sweep`) against `riccati_sweep_ref` on the
    Go1 fleet's real expansions, f32 and f64, N in {10, 20}, B in {1, 7, 1000,
    4096, 16385} (one warp, a ragged single tile, a ragged last tile, full
@@ -26,25 +26,35 @@ non-zero before the last line):
    standing robot (N=10, B in {1, 7}) and the longest tree (N=30, B in {1, 7,
    256}). In f64 kernel and plain agree to 1e-10 of scale; in f32 the kernel
    and the f32 plain version are each held against the plain version in f64;
-   K2 (`line_search`, the line search of an iLQR iteration of the quaternion
-   SRB) against `line_search_ref` on a first iteration's inputs: the fleet
-   step's (N=10, 8 alphas, B in {1, 7, 4096}), the hardware loop's (N in {6,
-   8}, 12 alphas, B=1; N=6 at B=7 too), the golden fixture's (N=20, B in {1,
-   256}, leaves shared along B) and the humanoid's (two feet, N=20, B in {1,
-   7}), and a hard case (an alpha whose rollouts overflow to Inf / NaN, a
-   scenario that accepts nothing, done scenarios, per-knot w and cb, Qdf);
+   K2 (`line_search`, the line search of an iLQR iteration, one kernel body
+   over a model) against `line_search_ref` on a first iteration's inputs:
+   the quaternion SRB at the fleet step's (N=10, 8 alphas, B in {1, 7,
+   4096}), the hardware loop's (N in {6, 8}, 12 alphas, B=1; N=6 at B=7
+   too), the golden fixture's (N=20, B in {1, 256}, leaves shared along B)
+   and the humanoid's (two feet, N=20, B in {1, 7}); the Euler SRB at the
+   convex fleet's (midpoint rule, N=10, 8 alphas, B in {1, 7, 4096}) and the
+   golden convex fixture's (forward Euler, N=30, 12 alphas, B in {1, 256});
+   the attitude model at the falling_cat fleet's (N=40, 12 alphas, B in {1,
+   7, 4096}); a hard case (an alpha whose rollouts overflow to Inf / NaN, a
+   scenario that accepts nothing, done scenarios, per-knot w and cb, Qdf) and
+   a runaway attitude case (the same on the falling_cat problem);
    the per-alpha costs J_k first, then xs, us and J, f64 to 1e-10 of scale,
    f32 to 1e-4 against the f32 plain version where both select the same
-   alpha, every f32 flip a margin case (counted and printed);
+   alpha, every f32 flip a margin case (counted and printed); a rollout whose
+   quaternion runs off the unit sphere (`kernels.line_search.conditioned`:
+   falling_cat's steep starts at a large step) is held by its decision
+   alone, and a scenario whose plain selection runs away not at all
+   (counted and printed; none in any other model's checks);
 4. main path: the Go1 quaternion-MPC fleet controller (N=10, 2 AL x 5 iLQR,
    8 line-search alphas) at B in {256, 4096, 16384}, f32, counting K1 and K2
    launches (10 each a solve); then f64 at B=256 against the same controller
    on the CPU;
 
    From here on every counted path holds K2 to one launch an iLQR iteration
-   of a quaternion-SRB solve (beside K1 or K4's fused entry) and to none in
-   any other model's (the convex fleet, falling_cat, the bicycle, the convex
-   fixture), and adds what it counted to the K2 line's launches by path;
+   of a solve of a model it has (beside K1 or K4's fused entry: the
+   quaternion SRB's, the convex fleet's and fixture's, falling_cat's) and to
+   none in the bicycle's, and adds what it counted to its instantiation's
+   line in the kernels output, by path;
 5. fixture guard: the golden standing fixture (default SolverOptions) in f32
    and f64 against the reference's golden optimum, through the sweep (B=256)
    and through the associative scan (f32 at B=1 under backend="auto", f64
@@ -53,7 +63,9 @@ non-zero before the last line):
    events (f32 N=10 at B in {1, 256, 4096, 16384}, N=20 at B=1, f64 at
    B=4096), both entries of K4 alone and K2 alone (f32 N=10 K=8 at B in
    {4096, 16384}, the hardware ticks' N=6 and 8 K=12 at B=1, f64 N=10 at
-   B=4096), each beside its bound on the card (the larger of bytes over
+   B=4096; the convex fleet's f32 B=4096 and f64 B=256, the convex fixture's
+   f64 N=30 B in {1, 256}, the falling_cat fleet's N=40 f32 and f64 B=4096
+   and f64 B=1), each beside its bound on the card (the larger of bytes over
    3.35 TB/s and operations over the peak rate of the type) and the plain
    version's time;
 7. single-robot latency: the five B=1 rows of the reference's bench (cold
@@ -61,8 +73,9 @@ non-zero before the last line):
    tick of build + solve, under backend="auto" (K4) and "sweep" (K1),
    counting each kernel's launches per tick;
 8. convex fleet: the Euler convex-MPC baseline (N=10, 1 AL x 5 iLQR, 8
-   alphas) at B=4096 f32, counting K1 launches, its p50 step, and f64 at
-   B=256 against the CPU;
+   alphas) at B=4096 f32, counting K1 and K2 launches (5 each), its mean
+   Σfz beside the same solve's with the plain line search, its p50 step and
+   a profile of one step, and f64 at B=256 against the CPU;
 9. profile: device time by kernel over one B=4096 quaternion step and over
    one B=1 N=10 cold tick under each backend;
 10. closed loop (`runtime.step`, f32 unless noted): the CLI's standing fleet
@@ -116,11 +129,12 @@ non-zero before the last line):
    {15, 30}, B in {1, 7, 4096}, and the Go1 expansions with drawn mixed rows
    (12 x 12, not embedded), N = 10, B in {7, 4096}, f32 and f64; in the main
    process, counted: one default solve (the quat fixture, 6 x 10: exactly 60
-   K1 launches, no K4), one falling_cat receding tick (2 x 8: 16) and the
+   K1 launches, no K4) and one of the convex fixture (60 K1, 60 K2), one
+   falling_cat receding tick (2 x 8: 16 K1, 16 K2) and the
    bicycle's receding solves (state rows Cx; 2 x 8: 16 K1 launches each, the
    kernel with the cross term); a falling_cat fleet (B=4096, f32, N=40,
    3 x 25, starts at 100-175 degrees about seeded axes): one counted warm-up
-   solve (75 K1 launches), p50 / min / max of 3 more, one solve of the same
+   solve (75 K1 and 75 K2 launches), p50 / min / max of 3 more, one solve of the same
    starts in f64, both fleets held to the reference's bounds in every start
    but the few beyond 160 degrees that run away (the cost is unbounded below
    in |q|; none up to 160 degrees may), one profiled solve, and K1 alone at
@@ -129,7 +143,7 @@ non-zero before the last line):
    default options in f64, one problem and B=256, against the JSON at the
    JAX tests' bounds; the three branch scenarios at their own sizes in f64
    against tests/test_branch_configs.py's open-loop bounds; the falling_cat
-   receding loop in f64 to tick 50 (error < 0.05), 16 K1 launches a tick, one
+   receding loop in f64 to tick 50 (error < 0.05), 16 K1 and 16 K2 launches a tick, one
    tick under `set_sync_debug_mode("error")`.
 
 13. the joint-level tier (`runtime.step.make_actuated_walking_step` and
@@ -207,7 +221,9 @@ non-zero before the last line):
    (and the NCCL kernels the trace shows, printed); exactly 10 / 8 K1 a
    standing / walking tick.
 
-Then one JSON line describing each kernel, and last
+Then one JSON line describing each kernel (K2 one entry an instantiation:
+`line_search`, the quaternion SRB's, and `line_search[<instantiation>]`),
+and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 --kernels-only runs phases 1-3 (K2 included), K7 against the plain step and
@@ -332,14 +348,16 @@ def _check(cond, what):
         raise AssertionError(what)
 
 
-# K2's launches on each counted path of this process, for the kernels line
+# K2's launches on each counted path of this process, by instantiation, for
+# the kernels line
 K2_LAUNCHES = {}
 
 
-def _k2_count(path, n):
+def _k2_count(path, n, instantiation="quat_srb_midpoint"):
     """Adds ``n`` K2 launches, as counted on a path of this process, to
-    ``path``'s in the kernels line."""
-    K2_LAUNCHES[path] = K2_LAUNCHES.get(path, 0) + n
+    ``path``'s of ``instantiation`` in the kernels line."""
+    paths = K2_LAUNCHES.setdefault(instantiation, {})
+    paths[path] = paths.get(path, 0) + n
 
 
 def _first_pass(prob, spec):
@@ -542,23 +560,45 @@ def phase_scan_vs_plain(device):
     return worst_f32["assoc_scan"], worst_f32["assoc_backward"]
 
 
-# K2's checked shapes: (problem, N, alphas, batches): the fleet step's (N=10,
-# 8 alphas: one warp, 8 lanes, a ragged block, many blocks), the hardware
-# loop's ticks (N=6 and 8, 12 alphas: 16 lanes a scenario), the golden
-# fixture's (N=20, leaves shared along B) and the humanoid's (two feet).
+# K2's checked shapes: (problem, N, alphas, batches). The quaternion SRB: the
+# fleet step's (N=10, 8 alphas: one warp, 8 lanes, a ragged block, many
+# blocks), the hardware loop's ticks (N=6 and 8, 12 alphas: 16 lanes a
+# scenario), the golden fixture's (N=20, leaves shared along B) and the
+# humanoid's (two feet). The Euler SRB: the convex fleet's (midpoint rule,
+# N=10, 8 alphas) and the golden convex fixture's (forward Euler, N=30,
+# leaves shared along B; one problem and the B=256 fleet of phase 12's
+# workers). The attitude model: the falling_cat fleet's (N=40, 12 alphas).
 K2_CHECKED = (("standing", HORIZON, 8, (1, 7, 4096)), ("standing", 6, 12, (1, 7)),
               ("standing", 8, 12, (1,)), ("fixture", 20, 12, (1, 256)),
-              ("humanoid", 20, 12, (1, 7)))
-# K2 alone: (dtype, problem, N, alphas, B); the first is the kernels line's
+              ("humanoid", 20, 12, (1, 7)), ("convex", HORIZON, 8, (1, 7, 4096)),
+              ("convex_fixture", 30, 12, (1, 256)), ("falling_cat", 40, 12, (1, 7, 4096)))
+# The instantiation of each problem of K2's (kernels/line_search.INSTANTIATIONS)
+K2_MODEL = {"standing": "quat_srb_midpoint", "fixture": "quat_srb_midpoint",
+            "humanoid": "quat_srb_midpoint", "convex": "euler_srb_midpoint",
+            "convex_fixture": "euler_srb_euler", "falling_cat": "attitude_midpoint"}
+# K2 alone: (dtype, problem, N, alphas, B); the first is the kernels line's,
+# then the other instantiations' on their paths' shapes (K2_MAIN_OF)
 K2_TIMED = ((torch.float32, "standing", HORIZON, 8, 4096), (torch.float32, "standing", 6, 12, 1),
             (torch.float32, "standing", 8, 12, 1), (torch.float32, "standing", HORIZON, 8, 16384),
-            (torch.float64, "standing", HORIZON, 8, 4096))
+            (torch.float64, "standing", HORIZON, 8, 4096),
+            (torch.float32, "convex", HORIZON, 8, 4096), (torch.float64, "convex", HORIZON, 8, 256),
+            (torch.float64, "convex_fixture", 30, 12, 256),
+            (torch.float64, "convex_fixture", 30, 12, 1),
+            (torch.float32, "falling_cat", 40, 12, 4096),
+            (torch.float64, "falling_cat", 40, 12, 4096), (torch.float64, "falling_cat", 40, 12, 1))
 # K2 against its plain version on the same inputs: f64 to 1e-10 of scale; f32
 # to 1e-4 (J_k of max(|J_k|, |J|), xs and us of their largest magnitude, in
 # the scenarios whose selected alpha both sides agree on; a flip must be a
 # margin case: kernels/line_search.compare).
 K2_RTOL = {torch.float64: 1e-10, torch.float32: 1e-4}
 K2_MAIN = "f32 N=10 B=4096 K=8"  # the kernels line's shape, K2_TIMED's first
+# each instantiation's shape in the kernels line: its main path's (the convex
+# fleet's f32 B=4096, the convex fixture's f64 B=256, the falling_cat fleet's
+# f32 B=4096), by K2_TIMED's tags
+K2_MAIN_OF = {"quat_srb_midpoint": K2_MAIN,
+              "euler_srb_midpoint": "convex f32 N=10 B=4096 K=8",
+              "euler_srb_euler": "convex_fixture f64 N=30 B=256 K=12",
+              "attitude_midpoint": "falling_cat f32 N=40 B=4096 K=12"}
 
 
 def _k2_hard_case(dtype, device):
@@ -584,6 +624,44 @@ def _k2_hard_case(dtype, device):
     return spec, prob, kw
 
 
+def _k2_runaway_case(dtype, device):
+    """The falling_cat fleet's problem at B=7 (N=40, 12 alphas) with a first
+    "alpha" so large that every rollout runs away to Inf / NaN (the torque
+    enters the gyroscopic term and the quaternion's rate; never taken), a
+    scenario that accepts no alpha (1) and done scenarios (2, 4)."""
+    from quaternion_mpc_tpu_torch import examples
+
+    spec, prob, kw = examples.line_search_case("falling_cat", 7, dtype, device, 40, 12)
+    huge = torch.full((1,), 1e30 if dtype == torch.float32 else 1e160, dtype=dtype, device=device)
+    kw["alphas"] = torch.cat([huge, kw["alphas"][:-1]])
+    kw["J"][1] = -1e3
+    kw["done"][[2, 4]] = True
+    return spec, prob, kw
+
+
+def _k2_shape(name, dtype, horizon, n_alphas, batch):
+    """A K2 shape's tag: "f32 N=10 B=4096 K=8" for the quaternion fleet's
+    problem, the problem's name in front for the others."""
+    tag = f"{_shape_tag(dtype, horizon, batch)} K={n_alphas}"
+    return tag if name == "standing" else f"{name} {tag}"
+
+
+def _k2_cases(dtype, device):
+    """(tag, problem, (spec, prob, inputs)) of every K2_CHECKED shape in
+    ``dtype``, then the hard case and the runaway case."""
+    from quaternion_mpc_tpu_torch import examples
+
+    name32 = "f32" if dtype == torch.float32 else "f64"
+    for name, horizon, n_alphas, batches in K2_CHECKED:
+        for batch in batches:
+            yield (_k2_shape(name, dtype, horizon, n_alphas, batch), name,
+                   examples.line_search_case(name, batch, dtype, device, horizon, n_alphas))
+    yield (f"{name32} hard case B=7 (Inf / NaN alpha, none accepted, done, per-knot w and cb, "
+           f"Qdf)", "standing", _k2_hard_case(dtype, device))
+    yield (f"{name32} falling_cat runaway case B=7 (Inf / NaN alpha, none accepted, done)",
+           "falling_cat", _k2_runaway_case(dtype, device))
+
+
 def _hold_line_search(spec, prob, kw, tag):
     """K2 once on the card against its plain version on the same inputs
     (K2_RTOL); returns kernels.line_search.compare's dict with the flips'
@@ -596,7 +674,8 @@ def _hold_line_search(spec, prob, kw, tag):
     torch.cuda.synchronize()
     _check(k2.line_search.launches == before + 1, "line_search did not launch")
     want = k2.line_search_ref(spec, prob, **kw, with_costs=True)
-    res = k2.compare(got, want, kw["dV1"], kw["dV2"], kw["alphas"], K2_RTOL[dtype])
+    held = k2.conditioned(spec, prob, kw)
+    res = k2.compare(got, want, kw["dV1"], kw["dV2"], kw["alphas"], K2_RTOL[dtype], held=held)
     rtol = K2_RTOL[dtype]
     _check(res["nonfinite_same"], f"{tag}: the costs are non-finite in other places")
     _check(all(res[k] <= rtol for k in ("costs_err", "xs_err", "us_err", "J_err")),
@@ -604,60 +683,58 @@ def _hold_line_search(spec, prob, kw, tag):
     _check(res["decisions_same"] and res["margin_cases"]
            and (dtype == torch.float32 or not res["flips"]),
            f"{tag}: decisions differ outside the margin cases: {res}")
-    finite = torch.isfinite(want[6])
+    costs, scenarios = (h.to(want[6].device) for h in held)
+    scenarios[res["flips"]] = False  # a flip's outputs differ by design
+    finite = torch.isfinite(want[6]) & costs & scenarios[None, :]
     res["max_abs_err"] = max(
         float(torch.where(finite, (got[6] - want[6]).abs(), 0.0).max()),
-        *(float((g - w).abs().max()) for g, w in zip(got[:4], want[:4])))
+        *(float(torch.where(scenarios, (g - w).abs(), 0.0).max())
+          for g, w in zip(got[:4], want[:4])))
     print(f"[kernel] line_search {tag}{' J priced' if kw['J'] is None else ''} vs plain: J_k "
           f"{res['costs_err']:.2e}, xs "
           f"{res['xs_err']:.2e}, us {res['us_err']:.2e}, J {res['J_err']:.2e} of scale (tol "
           f"{rtol}); {len(res['flips'])} of {kw['dV1'].shape[0]} scenarios flipped"
-          + (" (each a margin case)" if res["flips"] else ""))
+          + (f" (each a margin case, {res['runaway_cases']} at a runaway rollout)"
+             if res["flips"] else "")
+          + (f"; runaway rollouts set aside: {res['set_aside']} costs, "
+             f"{res['set_aside_scenarios']} scenarios whose selected rollout runs away"
+             if res["set_aside"] or res["set_aside_scenarios"] else ""))
     return res
 
 
 def phase_line_search_vs_plain(device):
-    """K2 against line_search_ref at K2_CHECKED's shapes, f32 and f64, and on
-    the hard case (_k2_hard_case), each with J given and with J None (priced
-    by the kernel); in f32 also the f32 plain version against the f64 one at
-    the fleet step's shape, for the record. Returns (the f32 kernel's max abs
-    error at the fleet step's B=4096, flips in f32 over all checks, and the
-    checks' count)."""
-    from quaternion_mpc_tpu_torch import examples
+    """K2 against line_search_ref at K2_CHECKED's shapes, f32 and f64, on the
+    hard case (_k2_hard_case) and on the runaway case (_k2_runaway_case),
+    each with J given and with J None (priced by the kernel); in f32 also the
+    f32 plain version against the f64 one at each instantiation's main
+    shape, for the record. Returns ({instantiation: the f32 kernel's max abs
+    error at its main shape (K2_MAIN_OF)}, flips in f32 over all checks, and
+    the checks' count)."""
     from quaternion_mpc_tpu_torch.kernels import line_search as k2
 
-    worst, flips, checks = 0.0, 0, 0
+    worst, flips, checks = {}, 0, 0
     for dtype in (torch.float32, torch.float64):
-        name32 = "f32" if dtype == torch.float32 else "f64"
-        for name, horizon, n_alphas, batches in K2_CHECKED:
-            for batch in batches:
-                spec, prob, kw = examples.line_search_case(name, batch, dtype, device, horizon,
-                                                           n_alphas)
-                tag = f"{name32} {name} N={horizon} K={n_alphas} B={batch}"
-                # J given, and J None: the kernel prices xs_bar and us_bar itself (an AL
-                # iteration's first line search)
-                for given in (True, False):
-                    res = _hold_line_search(spec, prob, kw if given else {**kw, "J": None}, tag)
-                    flips, checks = flips + len(res["flips"]), checks + 1
-                if dtype == torch.float32 and (name, horizon, batch) == ("standing", HORIZON, 4096):
-                    worst = res["max_abs_err"]
-                    up = lambda t: t.double() if t.is_floating_point() else t
-                    prob64 = type(prob)(*(type(x)(*map(up, x)) if isinstance(x, tuple)
-                                          else up(x) if isinstance(x, torch.Tensor) else x
-                                          for x in prob))
-                    p32 = k2.line_search_ref(spec, prob, **kw, with_costs=True)[6].double()
-                    p64 = k2.line_search_ref(spec, prob64, **{k: up(v) for k, v in kw.items()},
-                                             with_costs=True)[6]
-                    scale = torch.maximum(p64.abs(), kw["J"].double().abs()[None])
-                    print(f"[kernel] (for the record) the f32 plain line search against the f64 "
-                          f"one on the same inputs, {name} N={horizon} B={batch}: J_k "
-                          f"{float(((p32 - p64).abs() / scale).max()):.2e} of max(|J_k|, |J|)")
-        spec, prob, kw = _k2_hard_case(dtype, device)
-        for given in (True, False):
-            res = _hold_line_search(spec, prob, kw if given else {**kw, "J": None},
-                                    f"{name32} hard case B=7 (Inf / NaN alpha, none accepted, "
-                                    f"done, per-knot w and cb, Qdf)")
-            flips, checks = flips + len(res["flips"]), checks + 1
+        for tag, name, (spec, prob, kw) in _k2_cases(dtype, device):
+            # J given, and J None: the kernel prices xs_bar and us_bar itself (an AL
+            # iteration's first line search)
+            for given in (True, False):
+                res = _hold_line_search(spec, prob, kw if given else {**kw, "J": None}, tag)
+                flips, checks = flips + len(res["flips"]), checks + 1
+            if tag != K2_MAIN_OF[K2_MODEL[name]]:
+                continue
+            worst[K2_MODEL[name]] = res["max_abs_err"]
+            if dtype == torch.float32:
+                up = lambda t: t.double() if t.is_floating_point() else t
+                prob64 = type(prob)(*(type(x)(*map(up, x)) if isinstance(x, tuple)
+                                      else up(x) if isinstance(x, torch.Tensor) else x
+                                      for x in prob))
+                p32 = k2.line_search_ref(spec, prob, **kw, with_costs=True)[6].double()
+                p64 = k2.line_search_ref(spec, prob64, **{k: up(v) for k, v in kw.items()},
+                                         with_costs=True)[6]
+                scale = torch.maximum(p64.abs(), kw["J"].double().abs()[None])
+                print(f"[kernel] (for the record) the f32 plain line search against the f64 "
+                      f"one on the same inputs, {tag}: J_k "
+                      f"{float(((p32 - p64).abs() / scale).max()):.2e} of max(|J_k|, |J|)")
     print(f"[kernel] line_search: {checks} checks, {flips} f32 flips in all (each a margin case)")
     return worst, flips, checks
 
@@ -678,9 +755,8 @@ def phase_line_search_timing(device):
         ms = _graph_time(launch, reps=50) * 1e3
         host_ms = _enqueue_time(launch) * 1e3
         plain_ms = _event_time(lambda: k2.line_search_ref(spec, prob, **kw), reps=3) * 1e3
-        n_feet, nc = prob.params.foot_pos.shape[0], prob.Cu.shape[0]
-        bound_ms, bound_by = _bound(k2.work(horizon, batch, n_alphas, n_feet, nc, dtype), dtype)
-        tag = f"{_shape_tag(dtype, horizon, batch)} K={n_alphas}"
+        bound_ms, bound_by = _bound(k2.work(spec, prob, **kw), dtype)
+        tag = _k2_shape(name, dtype, horizon, n_alphas, batch)
         by_shape[tag] = {"ms": ms, "host_enqueue_ms": host_ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by}
         print(f"[timing] K2 line_search {tag}: kernel {ms:.4f} ms (graph replay; host "
@@ -691,13 +767,18 @@ def phase_line_search_timing(device):
 
 # --kernels-only: other builds of K2 (the same source with a build option,
 # and with --k2-baseline another source with the same C interface), held bit
-# for bit against the shipped build at K2_CHECKED's shapes and the hard case
-# and timed in turns with it at K2_TIMED's and K2_DESIGN_SHAPES' shapes; the
-# launch plans swept at both; then the clocks of each pass. K2_DESIGN_SHAPES
-# lie between K2_TIMED's batch sizes, where the plans change.
-K2_DESIGN_SHAPES = tuple((torch.float32, "standing", n, k, b)
-                         for n, k, bs in ((HORIZON, 8, (1, 16, 64, 256, 1024, 2048)),
-                                          (6, 12, (16, 64, 256, 1024)), (HORIZON, 12, (4096,)))
+# for bit against the shipped build at K2_CHECKED's shapes, the hard case and
+# the runaway case, and timed in turns with it at K2_TIMED's and
+# K2_DESIGN_SHAPES' shapes (a baseline only at the instantiations it has);
+# the launch plans swept at both; then the clocks of each pass.
+# K2_DESIGN_SHAPES lie between K2_TIMED's batch sizes, where the plans change.
+K2_DESIGN_SHAPES = tuple((torch.float32, name, n, k, b)
+                         for name, n, k, bs in (("standing", HORIZON, 8, (1, 16, 64, 256, 1024,
+                                                                          2048)),
+                                                ("standing", 6, 12, (16, 64, 256, 1024)),
+                                                ("standing", HORIZON, 12, (4096,)),
+                                                ("convex", HORIZON, 8, (256, 1024)),
+                                                ("falling_cat", 40, 12, (64, 256, 1024, 16384)))
                          for b in bs)
 K2_VARIANTS = {"trajectories in device memory": ("-DK2_TRAJ_IN_DEVICE_MEMORY",),
                "plans": ("-DK2_PLAN_OVERRIDE",)}
@@ -777,46 +858,44 @@ def phase_k2_designs(device, baseline=None):
     libs = {"shipped": k2._lib(), **{name: k2.bind(path) for name, path in paths.items()}}
     others = [name for name in libs if name != "shipped"]
 
-    cases = []
-    for dtype in (torch.float32, torch.float64):
-        for name, horizon, n_alphas, batches in K2_CHECKED:
-            cases += [(f"{str(dtype)[6:]} {name} N={horizon} K={n_alphas} B={batch}",
-                       examples.line_search_case(name, batch, dtype, device, horizon, n_alphas))
-                      for batch in batches]
-        cases.append((f"{str(dtype)[6:]} hard case", _k2_hard_case(dtype, device)))
-    differ = {name: [0, 0.0, 0] for name in others}
-    for tag, (spec, prob, kw) in cases:
+    cases = [case for dtype in (torch.float32, torch.float64) for case in _k2_cases(dtype, device)]
+    differ = {name: [0, 0.0, 0, 0] for name in others}  # elements, largest, launches off, launches
+    for tag, name, (spec, prob, kw) in cases:
         for given in (True, False):
             kw_run = kw if given else {**kw, "J": None}
             want = k2.launch(libs["shipped"], spec, prob, **kw_run, with_costs=True)
-            for name in others:
-                n, worst = _k2_differ(k2.launch(libs[name], spec, prob, **kw_run,
+            for lib_name in others:
+                if K2_MODEL[name] not in libs[lib_name].instantiations:
+                    continue
+                n, worst = _k2_differ(k2.launch(libs[lib_name], spec, prob, **kw_run,
                                                 with_costs=True), want)
-                d = differ[name]
-                d[0], d[1], d[2] = d[0] + n, max(d[1], worst), d[2] + (n > 0)
+                d = differ[lib_name]
+                d[0], d[1], d[2], d[3] = d[0] + n, max(d[1], worst), d[2] + (n > 0), d[3] + 1
     torch.cuda.synchronize()
-    for name, (n, worst, cases_off) in differ.items():
-        print(f"[K2] bits: {name} against the shipped build over {2 * len(cases)} launches (every "
-              f"output; K2_CHECKED's shapes and the hard case, f32 and f64, J given and priced): "
-              f"{n} elements differ in {cases_off} launches, largest |difference| {worst:.3e}")
-    _check(all(n == 0 for n, _, _ in differ.values()),
+    for lib_name, (n, worst, cases_off, launches) in differ.items():
+        print(f"[K2] bits: {lib_name} ({', '.join(libs[lib_name].instantiations)}) against the "
+              f"shipped build over {launches} launches (every output; K2_CHECKED's shapes, the "
+              f"hard case and the runaway case of its instantiations, f32 and f64, J given and "
+              f"priced): {n} elements differ in {cases_off} launches, largest |difference| "
+              f"{worst:.3e}")
+    _check(all(d[0] == 0 for d in differ.values()),
            f"K2: a build's outputs differ from the shipped build's: {differ}")
 
     timed = ["shipped", *(name for name in others if name != "clocks")]
     for dtype, name, horizon, n_alphas, batch in K2_TIMED + K2_DESIGN_SHAPES:
         spec, prob, kw = examples.line_search_case(name, batch, dtype, device, horizon, n_alphas)
-        times = {name: [] for name in timed}
-        for lib_name in timed + timed[::-1]:
+        here = [lib_name for lib_name in timed if K2_MODEL[name] in libs[lib_name].instantiations]
+        times = {lib_name: [] for lib_name in here}
+        for lib_name in here + here[::-1]:
             lib = libs[lib_name]
             times[lib_name].append(_graph_time(
                 lambda: k2.launch(lib, spec, prob, **kw, with_costs=False), reps=50) * 1e3)
-        n_feet, nc = prob.params.foot_pos.shape[0], prob.Cu.shape[0]
-        bound_ms, _ = _bound(k2.work(horizon, batch, n_alphas, n_feet, nc, dtype), dtype)
-        print(f"[K2] designs {_shape_tag(dtype, horizon, batch)} K={n_alphas}, in turns forward / "
+        bound_ms, _ = _bound(k2.work(spec, prob, **kw), dtype)
+        print(f"[K2] designs {_k2_shape(name, dtype, horizon, n_alphas, batch)}, in turns forward / "
               f"backward (bound {bound_ms:.5f} ms): " + "; ".join(
                   f"{lib_name} {times[lib_name][0]:.4f} / {times[lib_name][1]:.4f} ms "
                   f"({100 * bound_ms / statistics.mean(times[lib_name]):.2f}% of the bound)"
-                  for lib_name in timed))
+                  for lib_name in here))
 
     # the plans: every (S, P) that a launch of the shape can take, in turns
     lib = libs["plans"]
@@ -835,7 +914,7 @@ def phase_k2_designs(device, baseline=None):
                 lambda: k2.launch(lib, spec, prob, **kw, with_costs=False), reps=20) * 1e3)
         lib.line_search_override(0, 0)
         best = min(plans, key=lambda plan: statistics.mean(times[plan]))
-        print(f"[K2] plans {_shape_tag(dtype, horizon, batch)} K={n_alphas} (S scenarios a "
+        print(f"[K2] plans {_k2_shape(name, dtype, horizon, n_alphas, batch)} (S scenarios a "
               f"block, P lanes an alpha; ms, in turns forward / backward): " + "; ".join(
                   f"S={S} P={P} {times[(S, P)][0]:.4f} / {times[(S, P)][1]:.4f}"
                   for S, P in plans) + f"; fastest S={best[0]} P={best[1]}")
@@ -844,10 +923,10 @@ def phase_k2_designs(device, baseline=None):
     dtype, name, horizon, n_alphas, batch = K2_TIMED[0]
     spec, prob, kw = examples.line_search_case(name, batch, dtype, device, horizon, n_alphas)
     table, extras, dims = k2.check_inputs(spec, prob, **kw)
-    outputs, scratch = k2.new_outputs(*dims[:4], kw["xs"], False)
+    outputs, scratch = k2.new_outputs(dims, kw["xs"], False)
     parts = {
         "check_inputs": lambda: k2.check_inputs(spec, prob, **kw),
-        "new_outputs": lambda: k2.new_outputs(*dims[:4], kw["xs"], False),
+        "new_outputs": lambda: k2.new_outputs(dims, kw["xs"], False),
         "c_tables": lambda: k2.c_tables(table, (*extras, scratch), outputs),
         "line_search": lambda: k2.line_search(spec, prob, **kw),
     }
@@ -865,7 +944,7 @@ def phase_k2_designs(device, baseline=None):
             _check(lib.line_search_clocks(stamps.ctypes.data, len(stamps)) == 0,
                    "reading K2's clocks failed")
             split, stamp = _k2_clock_split(stamps, horizon)
-            print(f"[K2] clocks {_shape_tag(dtype, horizon, batch)} K={n_alphas} "
+            print(f"[K2] clocks {_k2_shape(name, dtype, horizon, n_alphas, batch)} "
                   f"{'J given' if given else 'J priced'} (thread 0 of the middle block; two stamps "
                   f"back to back {stamp}): {int(sum(split.values()))} in all: "
                   + ", ".join(f"{p} {int(c)}" for p, c in split.items()))
@@ -1177,14 +1256,18 @@ def phase_latency(device):
 
 def phase_convex(device):
     """The Euler convex-MPC fleet baseline (bench.py:347-358): N=10, 1 AL x
-    5 iLQR, 8 alphas, B=4096 f32, exactly 5 K1 launches a solve, fleet mean
-    Σfz within 10 N of the weight, p50 step; then f64 at B=256 on the card
-    against the CPU (the quaternion path's bounds). Returns the p50 seconds
-    and the K1 launches of the B=4096 solve."""
+    5 iLQR, 8 alphas, B=4096 f32, exactly 5 K1 and 5 K2 launches a solve
+    (K2's Euler-SRB instantiation under the midpoint rule), fleet mean Σfz
+    within 10 N of the weight (printed beside the mean of the same solve with
+    the plain line search), p50 step and the device operations of one traced
+    step; then f64 at B=256 on the card against the CPU (the quaternion
+    path's bounds). Returns the p50 seconds and the K1 launches of the
+    B=4096 solve."""
     from quaternion_mpc_tpu_torch import examples
     from quaternion_mpc_tpu_torch.control import convex_mpc
     from quaternion_mpc_tpu_torch.kernels import line_search as k2
     from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
+    from quaternion_mpc_tpu_torch.solver import fleet
     from quaternion_mpc_tpu_torch.solver.problem import SolverOptions
 
     opts = SolverOptions(al_iterations=1, ilqr_iterations=5, max_linesearch=8)
@@ -1196,22 +1279,37 @@ def phase_convex(device):
     grf, cost = ctrl(*inputs)
     torch.cuda.synchronize()
     launches = rs.riccati_sweep.launches
-    _check(launches == per_solve and k2.line_search.launches == 0,
+    _check(launches == per_solve and k2.line_search.launches == per_solve,
            f"convex (K1, K2) launches per solve ({launches}, {k2.line_search.launches}), "
-           f"expected ({per_solve}, 0): the Euler model's line search is the plain version")
+           f"expected ({per_solve}, {per_solve})")
+    _k2_count("convex_fleet_1x5_B4096", k2.line_search.launches, "euler_srb_midpoint")
     _check(tuple(grf.shape) == (b, 4, 3) and tuple(cost.shape) == (b,), "convex output shapes")
     _check(bool(torch.isfinite(grf).all() and torch.isfinite(cost).all()), "convex non-finite")
     mean_fz = grf[..., 2].sum(-1).mean().item()
     _check(abs(mean_fz - GO1_WEIGHT_N) <= 10.0,
            f"convex mean Σfz {mean_fz:.2f} N, expected {GO1_WEIGHT_N:.2f} ± 10")
+    # the same solve with the plain line search (an untagged spec), for the record
+    plain = fleet.make_fleet_solver(convex_mpc.FLEET_MODEL_SPEC._replace(line_search=None), opts)
+    sol = plain(convex_mpc.build_fleet_problem(*inputs, HORIZON))
+    plain_fz = sol.us[0].reshape(4, 3, b)[:, 2].sum(0).mean().item()
     step = _sync_time(lambda: ctrl(*inputs))
-    print(f"[convex] f32 B={b}: K1 launches {per_solve}, K2 0, mean Σfz {mean_fz:.3f} N, "
-          f"mean cost {cost.mean().item():.5f}, step p50 {step * 1e3:.3f} ms, "
-          f"{b / step:,.0f} solves/s")
+    print(f"[convex] f32 B={b}: K1 and K2 launches {per_solve} each, mean Σfz {mean_fz:.4f} N "
+          f"(the same solve with the plain line search: {plain_fz:.4f} N; weight "
+          f"{GO1_WEIGHT_N:.2f} ± 10), mean cost {cost.mean().item():.5f}, step p50 "
+          f"{step * 1e3:.3f} ms, {b / step:,.0f} solves/s")
+    try:
+        _profile_once(lambda: ctrl(*inputs), f"convex fleet step B={b}", step)
+    except RuntimeError as e:  # a record, not a check: the tracer may be unavailable
+        print(f"[profile] convex fleet step not measured: {e}")
 
     b = 256
+    k2.line_search.launches = 0
     g_cuda, c_cuda = ctrl(*examples.standing_batch(b, HORIZON, torch.float64, device,
                                                    controller="convex"))
+    torch.cuda.synchronize()
+    _check(k2.line_search.launches == per_solve, f"convex f64: K2 launches "
+                                                 f"{k2.line_search.launches}, expected {per_solve}")
+    _k2_count("convex_fleet_1x5_B256_f64", k2.line_search.launches, "euler_srb_midpoint")
     g_cpu, c_cpu = ctrl(*examples.standing_batch(b, HORIZON, torch.float64, "cpu",
                                                  controller="convex"))
     grf_err = (g_cuda.cpu() - g_cpu).abs().max().item()
@@ -2025,12 +2123,12 @@ def phase_cross_term_vs_plain(device):
     return worst_f32
 
 
-def _counted(fn, what, want_k1, want_k2, path=None):
+def _counted(fn, what, want_k1, want_k2, path=None, instantiation="quat_srb_midpoint"):
     """fn() with the kernels' counts set to 0 just before and read just
     after: exactly ``want_k1`` K1 and ``want_k2`` K2 launches (al x ilqr for
-    a quaternion-SRB solve, 0 for another model's), no K4; ``path`` names the
-    K2 launches in the kernels line. Returns (fn's result, the K1 count as
-    read)."""
+    a solve of a model K2 has, 0 for the bicycle's), no K4; ``path`` names
+    the K2 launches of ``instantiation`` in the kernels line. Returns (fn's
+    result, the K1 count as read)."""
     from quaternion_mpc_tpu_torch.kernels import assoc_scan as k4
     from quaternion_mpc_tpu_torch.kernels import line_search as k2
     from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
@@ -2045,15 +2143,16 @@ def _counted(fn, what, want_k1, want_k2, path=None):
            f"{what}: (K1, assoc_backward, assoc_scan, K2) launches {got}, expected ({want_k1}, "
            f"0, 0, {want_k2})")
     if path is not None:
-        _k2_count(path, got[3])
+        _k2_count(path, got[3], instantiation)
     return out, got[0]
 
 
 def _hold_fixture(name, batch, device, path=None):
     """A golden C++ fixture at default options in f64, one problem (batch 0)
     or a fleet of ``batch`` copies, against the JSON at the JAX test's bounds
-    (K2 al x ilqr times in the quaternion fixtures, never in the Euler
-    convex one). Returns the K1 launches of the solve, as counted."""
+    (K2 al x ilqr times: the quaternion SRB's instantiation in the quaternion
+    fixtures, the Euler SRB's forward-Euler one in the convex fixture).
+    Returns the K1 launches of the solve, as counted."""
     from quaternion_mpc_tpu_torch import examples
     from quaternion_mpc_tpu_torch.solver import al_ilqr
     from quaternion_mpc_tpu_torch.solver.problem import SolverOptions
@@ -2065,15 +2164,16 @@ def _hold_fixture(name, batch, device, path=None):
         prob = al_ilqr.broadcast_problem(prob, batch)
     per_solve = opts.al_iterations * opts.ilqr_iterations
     sol, k1 = _counted(lambda: al_ilqr.make_solver(spec, opts)(prob),
-                       f"{name} fixture B={batch or 1}", per_solve,
-                       0 if name == "convex" else per_solve, path=path)
+                       f"{name} fixture B={batch or 1}", per_solve, per_solve, path=path,
+                       instantiation="euler_srb_euler" if name == "convex" else
+                       "quat_srb_midpoint")
     us, xs = sol.us.cpu().numpy(), sol.xs.cpu().numpy()[..., : len(gold_xs), :]
     us_err, xs_err = float(np.abs(us - gold_us).max()), float(np.abs(xs - gold_xs).max())
     _check(np.isfinite(us).all() and us_err <= atol_us and xs_err <= atol_xs,
            f"{name} fixture B={batch or 1}: us err {us_err:.3e} (tol {atol_us}), xs err "
            f"{xs_err:.3e} (tol {atol_xs})")
     print(f"[single] {name} fixture f64 {'one problem' if not batch else f'B={batch}'}, 6x10: "
-          f"K1 launches {k1}, K2 {0 if name == 'convex' else per_solve}, no K4; us err {us_err:.3e} (tol {atol_us}), xs err {xs_err:.3e} "
+          f"K1 launches {k1}, K2 {per_solve}, no K4; us err {us_err:.3e} (tol {atol_us}), xs err {xs_err:.3e} "
           f"(tol {atol_xs}), violation {float(sol.stats.constraint_violation.max()):.2e}")
     return k1
 
@@ -2086,10 +2186,9 @@ def _hold_branches(device):
 
     weight = 12.84 * 9.81  # spider_dog's, carried by friction on the walls
     for name, per_solve in (("falling_cat", 75), ("humanoid", 60), ("spider_dog", 60)):
-        # the attitude model of falling_cat runs the plain line search
         (sol, summary), k1 = _counted(
             lambda: scenarios.solve_scenario(name, dtype=torch.float64, device=device),
-            f"{name} solve", per_solve, 0 if name == "falling_cat" else per_solve)
+            f"{name} solve", per_solve, per_solve)
         us, xs = sol.us.cpu().numpy(), sol.xs.cpu().numpy()
         _check(np.isfinite(us).all() and np.isfinite(xs).all(), f"{name}: non-finite solution")
         if name == "falling_cat":
@@ -2108,8 +2207,7 @@ def _hold_branches(device):
                    and abs(f[:, 2].sum() - weight) <= 1e-3 * weight
                    and (press > 1.0).all() and (np.abs(f[:, 2]) <= 0.7 * press + 1e-5).all()
                    and np.abs(xs[-1, 7:13]).max() <= 1e-3, f"spider_dog: {summary}, f {f}")
-        print(f"[single] {name} f64, its own options: K1 launches {k1}, K2 "
-              f"{0 if name == 'falling_cat' else per_solve}, no K4; "
+        print(f"[single] {name} f64, its own options: K1 launches {k1}, K2 {per_solve}, no K4; "
               + ", ".join(f"{k} {v:.3e}" for k, v in summary.items()))
 
 
@@ -2124,7 +2222,7 @@ def _worker_single_quality(device):
 
 def _worker_cat_loop(device):
     """Worker: `make_receding_step("falling_cat")` in f64 to tick 50, exactly
-    16 K1 launches a tick, one tick under set_sync_debug_mode("error"); the
+    16 K1 and 16 K2 launches a tick, one tick under set_sync_debug_mode("error"); the
     reference's bounds at tick 50 (error < 0.05) and on the torque box."""
     from quaternion_mpc_tpu_torch import scenarios
 
@@ -2141,7 +2239,7 @@ def _worker_cat_loop(device):
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
         else:
-            (carry, m), _ = _counted(lambda: step(carry), f"falling_cat tick {tick}", 16, 0)
+            (carry, m), _ = _counted(lambda: step(carry), f"falling_cat tick {tick}", 16, 16)
         errs.append(m["att_err"])
         u_max.append(m["u_max"])
     torch.cuda.synchronize()
@@ -2151,8 +2249,8 @@ def _worker_cat_loop(device):
            "falling_cat loop: non-finite state")
     _check(errs[50] < 0.05 and u_hi <= 8.2,
            f"falling_cat loop: att_err at tick 50 {errs[50]:.3e} (bound 0.05), max torque {u_hi:.3f}")
-    print(f"[single] falling_cat receding loop f64, 2x8 a tick, {CAT_LOOP_TICKS} ticks: K1 launches "
-          f"16/tick, no K4, tick 2 under set_sync_debug_mode('error'): no synchronising call; "
+    print(f"[single] falling_cat receding loop f64, 2x8 a tick, {CAT_LOOP_TICKS} ticks: K1 and K2 "
+          f"launches 16/tick each, no K4, tick 2 under set_sync_debug_mode('error'): no synchronising call; "
           f"att_err {errs[0]:.3f} -> {errs[25]:.3e} (tick 25) -> {errs[50]:.3e} (tick 50, bound "
           f"0.05), max torque {u_hi:.3f} N*m (box 8, bound 8.2); {ms:.1f} ms/tick beside the "
           f"other workers")
@@ -2213,7 +2311,8 @@ def _hold_cat_fleet(sol, prob, what, torque_ceiling):
 def phase_cat_fleet(device, smi):
     """A falling_cat fleet, B=4096, f32, N=40, 3 AL x 25 iLQR, 12 alphas:
     starts at 100-175 degrees about seeded axes. One counted warm-up solve
-    (exactly 75 K1 launches), p50 / min / max of 3 more, the quality of the
+    (exactly 75 K1 and 75 K2 launches, K2's attitude instantiation), p50 /
+    min / max of 3 more, the quality of the
     fleet's optimum and of one f64 solve of the same starts, and K1 alone at
     this shape beside the function's bound at its own size.
     Returns a dict for the kernels line."""
@@ -2225,8 +2324,9 @@ def phase_cat_fleet(device, smi):
     spec, prob, opts = examples.falling_cat_fleet(b, dtype, device, seed=0)
     per_solve = opts.al_iterations * opts.ilqr_iterations
     solver = al_ilqr.make_solver(spec, opts)
-    sol, k1_launches = _counted(lambda: solver(prob), f"falling_cat fleet B={b}", per_solve, 0,
-                                path="falling_cat_fleet_3x25_B4096_untagged")
+    sol, k1_launches = _counted(lambda: solver(prob), f"falling_cat fleet B={b}", per_solve,
+                                per_solve, path="falling_cat_fleet_3x25_B4096",
+                                instantiation="attitude_midpoint")
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -2234,15 +2334,16 @@ def phase_cat_fleet(device, smi):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     p50 = statistics.median(times)
-    print(f"[single] falling_cat fleet f32 B={b}, N=40, 3x25, 12 alphas: K1 launches {k1_launches} "
-          f"a solve, no K4; p50 {p50 * 1e3:.1f} ms (min {min(times) * 1e3:.1f}, max "
+    print(f"[single] falling_cat fleet f32 B={b}, N=40, 3x25, 12 alphas: K1 and K2 launches "
+          f"{k1_launches} and {per_solve} a solve, no K4; p50 {p50 * 1e3:.1f} ms (min {min(times) * 1e3:.1f}, max "
           f"{max(times) * 1e3:.1f}; 3 solves after 1 warm-up), {b / p50:,.0f} solves/s; {smi}")
     # Quality: the gate of `_hold_cat_fleet`, on the f32 fleet and on one f64
     # solve of the same starts (the reference's bounds for its one start are
     # geodesic error < 1e-3, |torque| <= 8.0001, | |q| - 1 | <= 5e-3).
     _, prob64, _ = examples.falling_cat_fleet(b, torch.float64, device, seed=0)
     sol64, _ = _counted(lambda: al_ilqr.make_solver(spec, opts)(prob64),
-                        f"falling_cat fleet f64 B={b}", per_solve, 0)
+                        f"falling_cat fleet f64 B={b}", per_solve, per_solve,
+                        path="falling_cat_fleet_3x25_B4096_f64", instantiation="attitude_midpoint")
     away64, held64, geo64, u64, norm64, _ = _hold_cat_fleet(
         sol64, prob64, "falling_cat fleet f64", CAT_TORQUE_NEAR)
     away, held, geodesic, u_hi, norm_err, angle = _hold_cat_fleet(
@@ -2312,7 +2413,8 @@ def phase_cat_fleet(device, smi):
 def phase_single_counted(device):
     """In the main process, counts set to 0 just before each and read just
     after: one default solve (the quat fixture, 6 x 10: 60 K1 launches), one
-    falling_cat receding tick (2 x 8: 16), and the bicycle's receding solves
+    of the convex fixture (60 K1 and 60 K2, forward Euler), one falling_cat
+    receding tick (2 x 8: 16 K1 and 16 K2), and the bicycle's receding solves
     (state rows Cx, so K1 takes the cross term lux; 2 x 8: 16 each). Returns
     the K1 launches as counted: (of the default solve, of the tick, of the
     bicycle's solves together)."""
@@ -2321,11 +2423,14 @@ def phase_single_counted(device):
     from quaternion_mpc_tpu_torch.solver import al_ilqr
 
     solve_k1 = _hold_fixture("quat", 0, device, path="make_solver_default_6x10_quat_fixture")
+    # the golden convex fixture (forward Euler): its K2 instantiation counted here too
+    _hold_fixture("convex", 0, device, path="make_solver_default_6x10_convex_fixture")
     step, carry = scenarios.make_receding_step("falling_cat", dtype=torch.float64, device=device)
-    (carry, m), tick_k1 = _counted(lambda: step(carry), "falling_cat tick", 16, 0,
-                                   path="falling_cat_receding_tick_2x8_untagged")
+    (carry, m), tick_k1 = _counted(lambda: step(carry), "falling_cat tick", 16, 16,
+                                   path="falling_cat_receding_tick_2x8",
+                                   instantiation="attitude_midpoint")
     _check(bool(torch.isfinite(carry[0]).all()), "falling_cat tick: non-finite state")
-    print(f"[single] one falling_cat receding tick f64: K1 launches {tick_k1}, att_err "
+    print(f"[single] one falling_cat receding tick f64: K1 and K2 launches {tick_k1} each, att_err "
           f"{float(m['att_err']):.4f}, max torque {float(m['u_max']):.3f}")
 
     spec, opts, build, x_ref, u_ref, params, h, delta_max = examples.bicycle_tracking(
@@ -2336,7 +2441,7 @@ def phase_single_counted(device):
     errs, bicycle_k1 = [], 0
     for k in range(BICYCLE_TICKS):
         sol, k1 = _counted(lambda: solver(build(k, x, us_warm)), f"bicycle tick {k}", per_solve,
-                           0, path="bicycle_receding_solves_2x8_untagged")
+                           0)
         bicycle_k1 += k1
         errs.append(float(torch.sum((x - x_ref[k]) ** 2)))
         x = discretize.midpoint_step(classic.bicycle_dynamics, x, sol.us[0], params, h)
@@ -3938,8 +4043,9 @@ def phase_k7_kernels_only(device, baseline):
 def _print_ptxas(kbuild, rs, k4, libs):
     """What ptxas reported of each kernel; K1, and K4 in f32, must keep their
     working sets out of local memory (K4 in f64 is reported); K7 must not
-    spill in f32 or f64, nor K2's sixteen instantiations (f32 and f64, one to
-    four feet, one or two lanes an alpha)."""
+    spill in f32 or f64, nor K2's 52 kernels (f32 and f64, one or two lanes an
+    alpha: the quaternion SRB and the Euler SRB under the midpoint rule and
+    forward Euler at one to four feet, the attitude model)."""
     for lib in libs:
         for k in kbuild.ptxas_report(lib):
             print(f"[build] ptxas {lib.name.rsplit('_', 1)[0]} {k['name'][-40:]}: {k['registers']} "
@@ -3961,8 +4067,8 @@ def _print_ptxas(kbuild, rs, k4, libs):
     _check(len(k7_report) == 2 and all(k["stores"] == k["loads"] == 0 for k in k7_report),
            f"K7 spills (f32 or f64) or ptxas reported other kernels than its two: {k7_report}")
     k2_report = kbuild.ptxas_report(libs[3])
-    _check(len(k2_report) == 16 and all(k["stores"] == k["loads"] == 0 for k in k2_report),
-           f"K2 spills or ptxas reported other kernels than its sixteen: {k2_report}")
+    _check(len(k2_report) == 52 and all(k["stores"] == k["loads"] == 0 for k in k2_report),
+           f"K2 spills or ptxas reported other kernels than its 52: {k2_report}")
 
 
 def main(argv) -> int:
@@ -4215,38 +4321,43 @@ def main(argv) -> int:
                              for b, f in act["fleets"].items()},
         "plain_plant_tick_ms_B64": act["plain_tick_ms"],
         "actuated_tick_profile": act["profile"],
-    }, {
-        "name": "line_search",
+    }, *({
+        "name": "line_search" if inst == "quat_srb_midpoint" else f"line_search[{inst}]",
         "route": "cuda",
         "source": "quaternion_mpc_tpu_torch/csrc/line_search.cu",
         "replaces": "quaternion_mpc_tpu/solver/fleet.py:757",
+        "instantiation": inst,
         "design": ("a thread per (alpha, scenario), two up to a full wave of blocks, a "
                    "scenario's lanes side by side in a warp; constants and each knot's slab "
                    "staged in shared memory by cp.async, double-buffered; the pricing spread "
                    "over the scenario's lanes; every alpha's rollout kept, the selected one "
-                   "written by the whole block"),
-        # every counted path of this process, each driven with the count set
-        # to 0 just before and read just after (K2 al x ilqr a quaternion-SRB
-        # solve; the untagged paths' 0 are held there and listed as 0 here)
-        "launches": sum(K2_LAUNCHES.values()),
-        "launches_by_path": dict(K2_LAUNCHES),
-        "max_abs_err": k2_worst,
-        "f32_flips_in_all_checks": k2_flips,
-        "checks": k2_checks,
-        "ms": line_search_times[K2_MAIN]["ms"],
-        "plain_ms": line_search_times[K2_MAIN]["plain_ms"],
-        "bound_ms": line_search_times[K2_MAIN]["bound_ms"],
-        "bound_by": line_search_times[K2_MAIN]["bound_by"],
+                   "written by the whole block; the model a template argument"),
+        # every counted path of this process that runs this instantiation,
+        # each driven with the count set to 0 just before and read just after
+        # (K2 al x ilqr a solve)
+        "launches": sum(K2_LAUNCHES.get(inst, {}).values()),
+        "launches_by_path": dict(K2_LAUNCHES.get(inst, {})),
+        "max_abs_err": k2_worst[inst],
+        "ms": line_search_times[K2_MAIN_OF[inst]]["ms"],
+        "plain_ms": line_search_times[K2_MAIN_OF[inst]]["plain_ms"],
+        "bound_ms": line_search_times[K2_MAIN_OF[inst]]["bound_ms"],
+        "bound_by": line_search_times[K2_MAIN_OF[inst]]["bound_by"],
         "library_ms": None,
         "library": "no single PyTorch call computes this line search",
-        "shape": K2_MAIN,
-        "by_shape": line_search_times,
-        "hardware_tick_replay_ms_p50_min_max": [hw["tick"][k] for k in ("p50_ms", "min_ms",
-                                                                        "max_ms")],
-        "hardware_tick_replay_device_ops": hw["tick"]["replay_profile"]["device_ops"],
-        "three_tier_walks_upright_of_4": sum(
-            bool(s["upright"]) for s in hw["fresh_walks"]["three_tier_walks"]),
-    }]}))
+        "shape": K2_MAIN_OF[inst],
+        "by_shape": {tag: t for tag, t in line_search_times.items()
+                     if K2_MODEL.get(tag.split(" ")[0], "quat_srb_midpoint") == inst},
+        **(dict(f32_flips_in_all_checks=k2_flips, checks=k2_checks,
+                hardware_tick_replay_ms_p50_min_max=[hw["tick"][k] for k in ("p50_ms", "min_ms",
+                                                                            "max_ms")],
+                hardware_tick_replay_device_ops=hw["tick"]["replay_profile"]["device_ops"],
+                three_tier_walks_upright_of_4=sum(
+                    bool(s["upright"]) for s in hw["fresh_walks"]["three_tier_walks"]))
+           if inst == "quat_srb_midpoint" else {}),
+        **(dict(convex_step_ms=convex_step * 1e3) if inst == "euler_srb_midpoint" else {}),
+        **(dict(falling_cat_fleet_solve_ms=cat["p50"] * 1e3) if inst == "attitude_midpoint"
+           else {}),
+    } for inst in K2_MAIN_OF)]}))
     print(f"[done] wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

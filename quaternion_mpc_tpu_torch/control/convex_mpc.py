@@ -174,6 +174,7 @@ FLEET_MODEL_SPEC = FleetModelSpec(
     f=euler_srb_dynamics_fleet,
     fj=euler_srb_jacobian_fleet,
     quat_idx=None,
+    line_search="euler_srb",  # K2 (kernels/line_search.py), its midpoint instantiation
 )
 
 

@@ -256,7 +256,7 @@ FLEET_MODEL_SPEC = FleetModelSpec(
     fj=quat_srb_jacobian_fleet,
     quat_idx=3,
     edj=quat_srb_error_discrete_jac_fleet,
-    line_search="quat_srb_midpoint",  # K2 (kernels/line_search.py)
+    line_search="quat_srb",  # K2 (kernels/line_search.py), its midpoint instantiation
     # edj_blocks (the block-sparse Q-terms) is not wired in the reference
     # either (quat_mpc.py:246-252); it is the blueprint for the in-kernel
     # expansions of a later K1.

@@ -1,5 +1,7 @@
-// K2 — the line search of one iLQR iteration of the quaternion SRB, every
-// alpha of every scenario in one launch.
+// K2 — the line search of one iLQR iteration, every alpha of every scenario
+// in one launch, for each model it is instantiated for: the quaternion SRB
+// (midpoint rule), the Euler SRB of the convex baseline (midpoint rule and
+// forward Euler) and the attitude model of falling_cat (midpoint rule).
 //
 // Replaces the region XLA fused for the JAX package at
 // quaternion_mpc_tpu/solver/fleet.py:757-799 (jax.vmap of rollout :662-676
@@ -15,14 +17,14 @@
 //   summed in another order than they are can differ from them by more than
 //   the decrease the test asks of the smaller alphas;
 // - the closed-loop rollout from x = xs_bar[0]: at knot j, δx = x ⊖ xs_bar[j]
-//   (the Cayley-chart attitude error), u = (ū[j] + α·d[j]) + K[j]·δx, and x
-//   stepped by the midpoint rule of the quaternion SRB (models/srb.py
-//   quat_srb_dynamics_fleet: the moment Σ rᵢ×fᵢ + c×(m_c·g_body), the
-//   adjugate inverse of the inertia, gravity through the frozen rotation; no
-//   gyroscopic term, the trunk mass in the CoM moment);
+//   (the Cayley-chart attitude error where the state holds a quaternion, a
+//   plain difference elsewhere), u = (ū[j] + α·d[j]) + K[j]·δx, and x stepped
+//   by the model (the structs below: QuatSrbMidpoint, EulerSrb,
+//   AttitudeMidpoint);
 // - its augmented-Lagrangian cost (solver/fleet.total_cost): per stage knot
 //   ½Σ Qd·dx² + ½Σ Rd·du² + w·(1 − |q·q_ref|) + (Σ λ̄² − Σ λ²)/(2ρ) with
-//   λ̄ = max(λ + ρ·(Cu·u + cb), 0), then the terminal ½Σ Qdf·dx² + w·(1 − |q·q_ref|);
+//   λ̄ = max(λ + ρ·(Cu·u + cb), 0), then the terminal ½Σ Qdf·dx² + w·(1 − |q·q_ref|)
+//   (the geodesic terms only where the state holds a quaternion);
 // - the Armijo test against J and the expected decrease −(α·dV1 + α²·dV2)
 //   (solver/fleet.armijo_ok), which also needs a finite cost;
 // - the select: the first (largest) passing alpha; accepted = any passes,
@@ -30,23 +32,25 @@
 //   selected rollout and its cost replace xs, us and J.
 //
 // What bounds it on an H100: bytes at the fleet's sizes. Every lane of a
-// scenario reads the same gains K[j] (nu·12 values a knot), which are most of
+// scenario reads the same gains K[j] (nu·ne values a knot), which are most of
 // the bytes the function needs (kernels/line_search.work); the K rollouts'
 // arithmetic is below that at the card's peak. A rollout is a serial chain
 // of N knots, so what the design has to hide is the latency of that chain and
 // of its operands' loads; below a full wave of blocks (B up to ~2k at K = 8)
 // that latency is the whole time.
 //
-// Design (each point measured on an H100; PERF.md, "K2 redesigned"):
+// Design (each point measured on an H100 for the quaternion SRB; PERF.md, "K2
+// redesigned"). Nothing in it depends on the model but the sizes, the
+// constants a block stages and the step: a model is a template argument.
 // - A thread per (alpha, scenario), or two (P = 2, below): the G·P lanes of
 //   a scenario (G the least power of two >= K) sit next to each other in one
 //   warp; a block owns S consecutive scenarios.
 // - Shared memory holds every operand a lane reads in the rollouts. Once a
 //   launch: Qd, Qdf, Rd, Cu, w and cb where they are not per knot, and the
-//   model's constants of the midpoint step (inverse inertia, g_body, the CoM
-//   moment; computed by the scenario's first lane from its parameters). A
-//   knot slab, double-buffered: xs_bar[j], us_bar[j], K[j], d[j], x_ref[j],
-//   u_ref[j], λ[j], and cb[j], w[j] where per knot. The whole block copies
+//   model's constants of its step (computed by the scenario's first lane from
+//   its parameters: M::load). A knot slab, double-buffered: xs_bar[j],
+//   us_bar[j], K[j], d[j], x_ref[j], u_ref[j], λ[j], and cb[j], w[j] where per
+//   knot. The whole block copies
 //   knot j+1 with cp.async while its lanes roll knot j; one __syncthreads()
 //   a knot. A copy is one element (4 or 8 bytes): thread t takes scenario
 //   t mod S and every (G·P)-th row, so neighbouring threads read neighbouring
@@ -75,7 +79,7 @@
 //   alpha k at e·stride + s·G + k: a warp's stores are consecutive). The
 //   slab lives in shared memory where it fits beside the staging and every
 //   block has an SM of its own (small B: it then takes no block's place);
-//   else in a device-memory scratch of (N+1)·13 + N·nu rows x B x G values
+//   else in a device-memory scratch of (N+1)·nx + N·nu rows x B x G values
 //   that the wrapper allocates (the fleet's B = 4096: 34 MB in f32, most of
 //   it in L2). After the select, the whole block writes xs and us, thread t
 //   taking scenario t mod S and every (G·P)-th row: the selected alpha's
@@ -96,14 +100,33 @@
 //   a __ballot_sync, its cost comes by __shfl_sync. Lanes past the last
 //   scenario roll nothing (with P = 2 they roll what their shared memory
 //   holds, for the shuffles); all reach every barrier, ballot and shuffle.
-// Every value is computed by the same sequence of rounded operations as in
-// the previous design (one thread per (alpha, scenario) reading every
-// operand from device memory, a second rollout of the selected alpha, the
-// pricing by lane 0 alone): its outputs have the same bits, NaN's sign aside.
+// For the quaternion SRB every value is computed by the same sequence of
+// rounded operations as in the first design (one thread per (alpha,
+// scenario) reading every operand from device memory, a second rollout of
+// the selected alpha, the pricing by lane 0 alone): its outputs have the same
+// bits, NaN's sign aside.
 // Everything that changes within a solve is read from device memory (ρ, h, J,
 // dV1, dV2, done, the alphas), so a captured CUDA graph replays it right.
 // A select, never a 0/1-weighted sum, takes the selected values: an
 // unselected alpha's Inf or NaN reaches no output.
+//
+// The models (each a struct: NX, NE, NU, QI, VALUES, load, step), each step
+// written in the order of the operations of its plain PyTorch model:
+// - QuatSrbMidpoint<NF> (models/srb.py quat_srb_dynamics_fleet): x = [p, q,
+//   v, ω], the quaternion at 3; the moment Σ rᵢ×fᵢ + c×(m_c·g_body), the
+//   adjugate inverse of the inertia, gravity through the frozen rotation; no
+//   gyroscopic term, the trunk mass in the CoM moment; the midpoint rule;
+// - EulerSrb<NF, FORWARD> (euler_srb_dynamics_fleet, the convex baseline):
+//   x = [rpy, p, ω_world, v_world], no quaternion; the yaw-only rpy rate,
+//   Rz(yaw)·I⁻¹·Rzᵀ from cos and sin of the yaw at every evaluation,
+//   Σ rᵢ×fᵢ and v̇ = Σf/m + g; the midpoint rule, or forward Euler
+//   (FORWARD: the golden convex fixture);
+// - AttitudeMidpoint (models/attitude.py attitude_dynamics_fleet,
+//   falling_cat): x = [q, ω], the quaternion at 0, u a body torque;
+//   q̇ = ½G(q)ω, ω̇ = I⁻¹(u − ω×Iω) with the gyroscopic term; the midpoint
+//   rule.
+// An instantiation is named by its tag (line_search_tags, in the order of
+// enum Model), which the wrapper checks against its own.
 //
 // Layout: batch-last, as the solver holds it. Every input is contiguous in
 // its leading axes and has a batch axis of B or of 1 (a value every scenario
@@ -112,16 +135,20 @@
 // enum Input below, then the alphas, done and the trajectory scratch.
 //
 // C interface (bound with ctypes): line_search_f32 / _f64 take the input
-// table, its batch extents, the output table, N, B, K, n_feet (1-4), nc and
-// flags (FLAG_*), and a cudaStream_t; they launch on that stream and return
-// the CUDA error of the launch. line_search_table(out) writes the tables'
-// sizes, so the wrapper checks its order against the one compiled.
+// table, its batch extents, the output table, N, B, K, n_feet (1-4; 1 for
+// the attitude model, whose three torques are one group of three), nc and
+// flags (FLAG_*, the model's index at MODEL_SHIFT), and a cudaStream_t; they
+// launch on that stream and return the CUDA error of the launch.
+// line_search_table(out) writes the tables' sizes and line_search_tags() the
+// instantiations' tags, so the wrapper checks its order against the one
+// compiled.
 //
 // Built with -fmad=false (kernels/line_search.FLAGS): each operation rounds
 // as the plain version's do. Contracted, the kernel met its checks against
 // the plain version, but the f32 walking fleet of chip_smoke.py fell where
 // the plain version's stands: that closed loop's fate is set by rounding
-// (PERF.md, K2's findings).
+// (PERF.md, K2's findings). The Euler SRB's sine and cosine are the accurate
+// sincos (no fast math).
 //
 // Build options: -DK2_TRAJ_IN_DEVICE_MEMORY keeps the trajectory slab in the
 // scratch at every shape; -DK2_PLAN_OVERRIDE adds line_search_override(S,
@@ -139,40 +166,49 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define K2_ISFINITE(x) isfinite(x)
+#define K2_SINCOS(x, s, c) sincos(x, &(s), &(c))
 #else
 #include <cmath>
 #define K2_ISFINITE(x) std::isfinite(x)
+#define K2_SINCOS(x, s, c) ((s) = std::sin(x), (c) = std::cos(x))
 #endif
 
 #include <cstddef>
 
 namespace {
 
-constexpr int NX = 13;  // state: p 3, q 4 (w first), v 3, ω 3 (body frame)
-constexpr int NE = 12;  // error state: the attitude as 3 Cayley coordinates
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t SMEM_LIMIT = 232448;  // the shared memory a block may have on an H100
 
-// the inputs, in the order of the wrapper's table
+// the inputs, in the order of the wrapper's table (nx, ne: the model's state
+// and error state)
 enum Input {
-  IN_XS, IN_US, IN_KS, IN_DS,        // xs_bar (N+1, 13), us_bar (N, nu), Ks (N, nu, 12), ds (N, nu)
-  IN_X_REF, IN_U_REF,          // (N+1, 13), (N+1, nu)
-  IN_QD, IN_QDF, IN_RD, IN_W,        // (13), (13), (nu), w (1) or per knot (N+1)
+  IN_XS, IN_US, IN_KS, IN_DS,        // xs_bar (N+1, nx), us_bar (N, nu), Ks (N, nu, ne), ds (N, nu)
+  IN_X_REF, IN_U_REF,          // (N+1, nx), (N+1, nu)
+  IN_QD, IN_QDF, IN_RD, IN_W,        // (nx), (nx), (nu), w (1) or per knot (N+1)
   IN_CU, IN_CB, IN_LAM,           // (nc, nu), cb (nc) or per knot (N+1, nc), lam (N, nc)
-  IN_FOOT, IN_INERTIA, IN_MASS, IN_COM_OFFSET, IN_COM_MASS, IN_ROT,  // (n_feet, 3), (3, 3), (1), (3), (1), (3, 3)
+  // the model's parameters (null where a model has none of them): the
+  // quaternion SRB's all six, (n_feet, 3), (3, 3), (1), (3), (1), (3, 3); the
+  // Euler SRB's feet, inertia and mass; the attitude model's inertia
+  IN_FOOT, IN_INERTIA, IN_MASS, IN_COM_OFFSET, IN_COM_MASS, IN_ROT,
   IN_H, IN_RHO, IN_J, IN_DV1, IN_DV2,   // each one value a scenario (h, ρ: shared or not; J
                                         // null with FLAG_PRICE)
   INPUTS
 };
 // after the table's INPUTS pointers: the alphas (K), done (B, bool) and the
-// trajectory scratch ((N+1)·13 + N·nu rows x B x G values)
+// trajectory scratch ((N+1)·nx + N·nu rows x B x G values)
 constexpr int IN_ALPHAS = INPUTS, IN_DONE = INPUTS + 1, IN_SCRATCH = INPUTS + 2;
-// the outputs: xs (N+1, 13, B), us (N, nu, B), the cost the test compared
+// the outputs: xs (N+1, nx, B), us (N, nu, B), the cost the test compared
 // against (B), J (B), accepted (B, bool), improved (B, bool), the rollouts'
 // costs (K, B) or null
 enum Output { XS_OUT, US_OUT, J_IN_OUT, J_OUT, ACCEPTED, IMPROVED, COSTS, OUTPUTS };
-// flags: w or cb per knot; FLAG_PRICE: no J given, the kernel prices xs_bar, us_bar
-constexpr int FLAG_W_PER_KNOT = 1, FLAG_CB_PER_KNOT = 2, FLAG_PRICE = 4;
+// flags: w or cb per knot; FLAG_PRICE: no J given, the kernel prices xs_bar,
+// us_bar; the instantiation's index (enum Model) from bit MODEL_SHIFT on
+constexpr int FLAG_W_PER_KNOT = 1, FLAG_CB_PER_KNOT = 2, FLAG_PRICE = 4, MODEL_SHIFT = 8;
+
+// The instantiations, and their tags in this order (line_search_tags).
+enum Model { QUAT_SRB_MIDPOINT, EULER_SRB_MIDPOINT, EULER_SRB_EULER, ATTITUDE_MIDPOINT, MODELS };
+constexpr const char* TAGS = "quat_srb_midpoint euler_srb_midpoint euler_srb_euler attitude_midpoint";
 
 constexpr double GRAVITY = 9.81;
 
@@ -184,9 +220,6 @@ enum Slot {
   SLOTS
 };
 constexpr int FIRST_KNOT_SLOT = SL_XS;
-// The model's constants of one scenario, by index: the feet (3·NF), the
-// inverse inertia (9), g_body (3), the CoM moment c × (m_c·g_body) (3), the mass.
-constexpr int model_values(int NF) { return 3 * NF + 16; }
 
 // An input: its values, and the extent of its batch axis (B, or 1 when every
 // scenario shares them).
@@ -305,9 +338,11 @@ void choose_blocks(int G, int B, int sms, int& S, int& P) {
 }
 
 // The launch's plan: the block's scenarios and lanes, and shared memory;
-// `sms`, the card's multiprocessors.
+// nx, ne, nu, model_values: the model's state, error state, input and constants
+// (M::NX, M::NE, M::NU, M::VALUES); `sms`, the card's multiprocessors.
 template <typename T>
-Plan make_plan(const long long* ld, int N, int B, int K, int nu, int nc, int flags, int sms) {
+Plan make_plan(const long long* ld, int N, int B, int K, int nx, int ne, int nu,
+               int model_values, int nc, int flags, int sms) {
   Plan p{};
   p.G = group_lanes(K);
   p.lgG = log2_of(p.G);
@@ -321,8 +356,8 @@ Plan make_plan(const long long* ld, int N, int B, int K, int nu, int nc, int fla
   p.blocks = static_cast<int>((static_cast<long long>(B) + S - 1) / S);
   const bool w_knot = flags & FLAG_W_PER_KNOT, cb_knot = flags & FLAG_CB_PER_KNOT;
   const int rows[SLOTS] = {
-      NX, NX, nu, w_knot ? 0 : 1, nc * nu, cb_knot ? 0 : nc, model_values(nu / 3),
-      NX, nu, nu * NE, nu, NX, nu, nc, cb_knot ? nc : 0, w_knot ? 1 : 0};
+      nx, nx, nu, w_knot ? 0 : 1, nc * nu, cb_knot ? 0 : nc, model_values,
+      nx, nu, nu * ne, nu, nx, nu, nc, cb_knot ? nc : 0, w_knot ? 1 : 0};
   const int source[SLOTS] = {IN_QD, IN_QDF, IN_RD, IN_W, IN_CU, IN_CB, -1,
                              IN_XS, IN_US, IN_KS, IN_DS, IN_X_REF, IN_U_REF, IN_LAM, IN_CB, IN_W};
   int at = 0;
@@ -342,7 +377,7 @@ Plan make_plan(const long long* ld, int N, int B, int K, int nu, int nc, int fla
   const size_t values = static_cast<size_t>(p.knot_at) + 2 * static_cast<size_t>(p.knot_values);
   p.sel_at = static_cast<int>(values);
   const size_t sel = (2 * S * sizeof(int) + sizeof(T) - 1) / sizeof(T);
-  const size_t traj = (static_cast<size_t>(N + 1) * NX + static_cast<size_t>(N) * nu) * S * p.G;
+  const size_t traj = (static_cast<size_t>(N + 1) * nx + static_cast<size_t>(N) * nu) * S * p.G;
   p.traj_at = static_cast<int>(values + sel);
   p.bytes = (values + sel + traj) * sizeof(T);
   // in shared memory where it fits and every block has an SM of its own, so
@@ -465,17 +500,12 @@ __device__ __forceinline__ void quat_rate(const T* q, const T* w, T* out) {
   out[3] = T(0.5) * ((-q[2] * w[0] + q[1] * w[1]) + q[0] * w[2]);
 }
 
-// The model's per-scenario constants of the midpoint step, from its
-// parameters, to m[q] (q as in model_values).
-template <typename T, int NF>
-__device__ __forceinline__ void load_model(const Args<T>& a, long long b, T* m) {
-  const Col<T> foot = column(a.in[IN_FOOT], b), inertia = column(a.in[IN_INERTIA], b),
-               com = column(a.in[IN_COM_OFFSET], b), rot = column(a.in[IN_ROT], b);
-  for (int i = 0; i < 3 * NF; ++i) m[i] = foot[i];
-  T* inv = m + 3 * NF;
-  // the adjugate over the determinant (models/srb._inv3_bl)
-  const T A = inertia[0], Bv = inertia[1], C = inertia[2], D = inertia[3], E = inertia[4],
-          F = inertia[5], G = inertia[6], H = inertia[7], I = inertia[8];
+// The inverse of a 3 x 3 matrix (row-major, at A) as the adjugate over the
+// determinant, to inv (models/srb._inv3_bl).
+template <typename T, typename R>
+__device__ __forceinline__ void inverse3(const R& A_, T* inv) {
+  const T A = A_[0], Bv = A_[1], C = A_[2], D = A_[3], E = A_[4], F = A_[5], G = A_[6],
+          H = A_[7], I = A_[8];
   const T a11 = E * I - F * H, a12 = C * H - Bv * I, a13 = Bv * F - C * E;
   const T a21 = F * G - D * I, a22 = A * I - C * G, a23 = C * D - A * F;
   const T a31 = D * H - E * G, a32 = Bv * G - A * H, a33 = A * E - Bv * D;
@@ -483,27 +513,13 @@ __device__ __forceinline__ void load_model(const Args<T>& a, long long b, T* m) 
   inv[0] = a11 / det, inv[1] = a12 / det, inv[2] = a13 / det;
   inv[3] = a21 / det, inv[4] = a22 / det, inv[5] = a23 / det;
   inv[6] = a31 / det, inv[7] = a32 / det, inv[8] = a33 / det;
-  T g_body[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) g_body[c] = T(-GRAVITY) * rot[6 + c];  // Rᵀ g_world
-  const T com_mass = column(a.in[IN_COM_MASS], b)[0];
-  const T mg[3] = {com_mass * g_body[0], com_mass * g_body[1], com_mass * g_body[2]};
-  const T c0 = com[0], c1 = com[1], c2 = com[2];
-  T* rest = inv + 9;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) rest[c] = g_body[c];
-  rest[3] = c1 * mg[2] - c2 * mg[1];
-  rest[4] = c2 * mg[0] - c0 * mg[2];
-  rest[5] = c0 * mg[1] - c1 * mg[0];
-  rest[6] = column(a.in[IN_MASS], b)[0];
 }
 
-// x ← x + h·f(x + ½h·f(x, u), u). The forces set v̇ and ω̇ alone, so both
-// evaluations of f share them. m: the scenario's model constants.
+// The sum of the forces and the moment Σ rᵢ × fᵢ of NF feet (r: the feet,
+// 3 values each), in the plain version's order.
 template <typename T, int NF>
-__device__ __forceinline__ void midpoint_step(T* x, const T* u, const Sm<T>& m, T h) {
-  constexpr int INV = 3 * NF, G_BODY = INV + 9, COM = G_BODY + 3, MASS = COM + 3;
-  T force[3], moment[3];
+__device__ __forceinline__ void force_and_moment(const T* u, const Sm<T>& r_, T* force,
+                                                 T* moment) {
 #pragma unroll
   for (int c = 0; c < 3; ++c) force[c] = u[c];
 #pragma unroll
@@ -512,7 +528,7 @@ __device__ __forceinline__ void midpoint_step(T* x, const T* u, const Sm<T>& m, 
     for (int c = 0; c < 3; ++c) force[c] = force[c] + u[3 * f + c];
 #pragma unroll
   for (int f = 0; f < NF; ++f) {
-    const T r[3] = {m[3 * f], m[3 * f + 1], m[3 * f + 2]};
+    const T r[3] = {r_[3 * f], r_[3 * f + 1], r_[3 * f + 2]};
     const T* F = u + 3 * f;
     const T t0 = r[1] * F[2] - r[2] * F[1], t1 = r[2] * F[0] - r[0] * F[2],
             t2 = r[0] * F[1] - r[1] * F[0];
@@ -522,50 +538,230 @@ __device__ __forceinline__ void midpoint_step(T* x, const T* u, const Sm<T>& m, 
       moment[0] = moment[0] + t0, moment[1] = moment[1] + t1, moment[2] = moment[2] + t2;
     }
   }
-  T v_dot[3], w_dot[3];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) moment[c] = moment[c] + m[COM + c];
-  const T mass = m[MASS];
-#pragma unroll
-  for (int c = 0; c < 3; ++c) v_dot[c] = force[c] / mass + m[G_BODY + c];
-#pragma unroll
-  for (int r = 0; r < 3; ++r)
-    w_dot[r] = (m[INV + 3 * r] * moment[0] + m[INV + 3 * r + 1] * moment[1]) +
-               m[INV + 3 * r + 2] * moment[2];
+}
 
-  const T half_h = T(0.5) * h;
-  T q_dot[4], q_m[4], w_m[3], v_m[3];
-  quat_rate(x + 3, x + 10, q_dot);
+// The quaternion SRB under the midpoint rule (models/srb.py
+// quat_srb_dynamics_fleet): x = [p 3, q 4 (w first), v 3, ω 3], body frame.
+// Its constants, by index: the feet (3·NF), the inverse inertia (9), g_body
+// (3), the CoM moment c × (m_c·g_body) (3), the mass.
+template <int NF>
+struct QuatSrbMidpoint {
+  static constexpr int NX = 13, NE = 12, NU = 3 * NF, QI = 3, VALUES = 3 * NF + 16;
+
+  template <typename T>
+  __device__ static void load(const Args<T>& a, long long b, T* m) {
+    const Col<T> foot = column(a.in[IN_FOOT], b), com = column(a.in[IN_COM_OFFSET], b),
+                 rot = column(a.in[IN_ROT], b);
+    for (int i = 0; i < 3 * NF; ++i) m[i] = foot[i];
+    T* inv = m + 3 * NF;
+    inverse3(column(a.in[IN_INERTIA], b), inv);
+    T g_body[3];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) q_m[i] = x[3 + i] + half_h * q_dot[i];
+    for (int c = 0; c < 3; ++c) g_body[c] = T(-GRAVITY) * rot[6 + c];  // Rᵀ g_world
+    const T com_mass = column(a.in[IN_COM_MASS], b)[0];
+    const T mg[3] = {com_mass * g_body[0], com_mass * g_body[1], com_mass * g_body[2]};
+    const T c0 = com[0], c1 = com[1], c2 = com[2];
+    T* rest = inv + 9;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    v_m[c] = x[7 + c] + half_h * v_dot[c];
-    w_m[c] = x[10 + c] + half_h * w_dot[c];
+    for (int c = 0; c < 3; ++c) rest[c] = g_body[c];
+    rest[3] = c1 * mg[2] - c2 * mg[1];
+    rest[4] = c2 * mg[0] - c0 * mg[2];
+    rest[5] = c0 * mg[1] - c1 * mg[0];
+    rest[6] = column(a.in[IN_MASS], b)[0];
   }
-  quat_rate(q_m, w_m, q_dot);
+
+  // x ← x + h·f(x + ½h·f(x, u), u). The forces set v̇ and ω̇ alone, so both
+  // evaluations of f share them. m: the scenario's constants.
+  template <typename T>
+  __device__ static void step(T* x, const T* u, const Sm<T>& m, T h) {
+    constexpr int INV = 3 * NF, G_BODY = INV + 9, COM = G_BODY + 3, MASS = COM + 3;
+    T force[3], moment[3];
+    force_and_moment<T, NF>(u, m, force, moment);
+    T v_dot[3], w_dot[3];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) x[c] = x[c] + h * v_m[c];
+    for (int c = 0; c < 3; ++c) moment[c] = moment[c] + m[COM + c];
+    const T mass = m[MASS];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) x[3 + i] = x[3 + i] + h * q_dot[i];
+    for (int c = 0; c < 3; ++c) v_dot[c] = force[c] / mass + m[G_BODY + c];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    x[7 + c] = x[7 + c] + h * v_dot[c];
-    x[10 + c] = x[10 + c] + h * w_dot[c];
+    for (int r = 0; r < 3; ++r)
+      w_dot[r] = (m[INV + 3 * r] * moment[0] + m[INV + 3 * r + 1] * moment[1]) +
+                 m[INV + 3 * r + 2] * moment[2];
+
+    const T half_h = T(0.5) * h;
+    T q_dot[4], q_m[4], w_m[3], v_m[3];
+    quat_rate(x + 3, x + 10, q_dot);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q_m[i] = x[3 + i] + half_h * q_dot[i];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      v_m[c] = x[7 + c] + half_h * v_dot[c];
+      w_m[c] = x[10 + c] + half_h * w_dot[c];
+    }
+    quat_rate(q_m, w_m, q_dot);
+#pragma unroll
+    for (int c = 0; c < 3; ++c) x[c] = x[c] + h * v_m[c];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) x[3 + i] = x[3 + i] + h * q_dot[i];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      x[7 + c] = x[7 + c] + h * v_dot[c];
+      x[10 + c] = x[10 + c] + h * w_dot[c];
+    }
+  }
+};
+
+// The Euler SRB of the convex baseline (models/srb.py
+// euler_srb_dynamics_fleet): x = [rpy 3, p 3, ω 3, v 3], world frame, no
+// quaternion (the error state is the state); by the midpoint rule, or with
+// FORWARD by forward Euler, x ← x + h·f(x, u). Its constants: the feet
+// (3·NF), the inverse inertia (9), the mass.
+template <int NF, bool FORWARD>
+struct EulerSrb {
+  static constexpr int NX = 12, NE = 12, NU = 3 * NF, QI = -1, VALUES = 3 * NF + 10;
+
+  template <typename T>
+  __device__ static void load(const Args<T>& a, long long b, T* m) {
+    const Col<T> foot = column(a.in[IN_FOOT], b);
+    for (int i = 0; i < 3 * NF; ++i) m[i] = foot[i];
+    inverse3(column(a.in[IN_INERTIA], b), m + 3 * NF);
+    m[3 * NF + 9] = column(a.in[IN_MASS], b)[0];
+  }
+
+  // ẋ at x: the rpy rate of the yaw-only map, v, ω̇ = (Rz·I⁻¹·Rzᵀ)·moment,
+  // and v̇ (given: neither it nor the moment depends on x). Rz = [[c, −s, 0],
+  // [s, c, 0], [0, 0, 1]] at the yaw; the products by Rz's zeros and its one
+  // that the plain version's matrix products take are left out, which moves
+  // no finite value.
+  template <typename T>
+  __device__ static void rate(const T* x, const T* v_dot, const T* moment, const Sm<T>& m,
+                              T* xd) {
+    constexpr int INV = 3 * NF;
+    T c, s;
+    K2_SINCOS(x[2], s, c);  // one range reduction for both: no spill in f32 (ptxas)
+    xd[0] = c * x[6] + s * x[7];
+    xd[1] = -s * x[6] + c * x[7];
+    xd[2] = x[8];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) xd[3 + i] = x[9 + i];
+    // row by row: row r of Rz·I⁻¹, then of (Rz·I⁻¹)·Rzᵀ, then ω̇[r]
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      T RI[3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        RI[k] = r == 0   ? c * m[INV + k] + -s * m[INV + 3 + k]
+                : r == 1 ? s * m[INV + k] + c * m[INV + 3 + k]
+                         : m[INV + 6 + k];
+      const T w0 = RI[0] * c + RI[1] * -s, w1 = RI[0] * s + RI[1] * c, w2 = RI[2];
+      xd[6 + r] = (w0 * moment[0] + w1 * moment[1]) + w2 * moment[2];
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i) xd[9 + i] = v_dot[i];
+  }
+
+  template <typename T>
+  __device__ static void step(T* x, const T* u, const Sm<T>& m, T h) {
+    T force[3], moment[3], v_dot[3], xd[NX];
+    force_and_moment<T, NF>(u, m, force, moment);
+    const T mass = m[3 * NF + 9];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) v_dot[c] = force[c] / mass + (c == 2 ? T(-GRAVITY) : T(0));
+    rate(x, v_dot, moment, m, xd);
+    if constexpr (!FORWARD) {
+      const T half_h = T(0.5) * h;
+      T x_m[NX];
+#pragma unroll
+      for (int i = 0; i < NX; ++i) x_m[i] = x[i] + half_h * xd[i];
+      rate(x_m, v_dot, moment, m, xd);
+    }
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = x[i] + h * xd[i];
+  }
+};
+template <int NF>
+using EulerSrbMidpoint = EulerSrb<NF, false>;
+template <int NF>
+using EulerSrbEuler = EulerSrb<NF, true>;
+
+// The attitude model of falling_cat under the midpoint rule
+// (models/attitude.py attitude_dynamics_fleet): x = [q 4 (w first), ω 3], u
+// a body torque. Its constants: the inertia (9), its inverse (9).
+struct AttitudeMidpoint {
+  static constexpr int NX = 7, NE = 6, NU = 3, QI = 0, VALUES = 18;
+
+  template <typename T>
+  __device__ static void load(const Args<T>& a, long long b, T* m) {
+    const Col<T> inertia = column(a.in[IN_INERTIA], b);
+    for (int i = 0; i < 9; ++i) m[i] = inertia[i];
+    inverse3(inertia, m + 9);
+  }
+
+  // ẋ = [½G(q)ω, I⁻¹(u − ω × Iω)]
+  template <typename T>
+  __device__ static void rate(const T* x, const T* u, const Sm<T>& m, T* xd) {
+    quat_rate(x, x + 4, xd);
+    const T* w = x + 4;
+    T Iw[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) Iw[r] = (m[3 * r] * w[0] + m[3 * r + 1] * w[1]) + m[3 * r + 2] * w[2];
+    const T moment[3] = {u[0] - (w[1] * Iw[2] - w[2] * Iw[1]), u[1] - (w[2] * Iw[0] - w[0] * Iw[2]),
+                         u[2] - (w[0] * Iw[1] - w[1] * Iw[0])};
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      xd[4 + r] = (m[9 + 3 * r] * moment[0] + m[9 + 3 * r + 1] * moment[1]) +
+                  m[9 + 3 * r + 2] * moment[2];
+  }
+
+  template <typename T>
+  __device__ static void step(T* x, const T* u, const Sm<T>& m, T h) {
+    T xd[NX], x_m[NX];
+    rate(x, u, m, xd);
+    const T half_h = T(0.5) * h;
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x_m[i] = x[i] + half_h * xd[i];
+    rate(x_m, u, m, xd);
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = x[i] + h * xd[i];
+  }
+};
+
+// δx = x ⊖ x_bar: a plain difference, and where the state holds a quaternion
+// (at M::QI) its Cayley coordinates of q_bar⁻¹ ⊗ q in its place.
+template <typename M, typename T>
+__device__ __forceinline__ void state_diff(const T* x, const Sm<T>& xb, T* dx) {
+  constexpr int QI = M::QI;
+  if constexpr (QI < 0) {
+#pragma unroll
+    for (int i = 0; i < M::NX; ++i) dx[i] = x[i] - xb[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < QI; ++i) dx[i] = x[i] - xb[i];
+    // δq = q_ref⁻¹ ⊗ q, then its Cayley coordinates dv / dw
+    const T w1 = xb[QI], v1[3] = {-xb[QI + 1], -xb[QI + 2], -xb[QI + 3]};
+    const T w2 = x[QI], v2[3] = {x[QI + 1], x[QI + 2], x[QI + 3]};
+    const T dw = w1 * w2 - ((v1[0] * v2[0] + v1[1] * v2[1]) + v1[2] * v2[2]);
+    const T cr[3] = {v1[1] * v2[2] - v1[2] * v2[1], v1[2] * v2[0] - v1[0] * v2[2],
+                     v1[0] * v2[1] - v1[1] * v2[0]};
+#pragma unroll
+    for (int i = 0; i < 3; ++i) dx[QI + i] = (w1 * v2[i] + w2 * v1[i] + cr[i]) / dw;
+#pragma unroll
+    for (int i = QI + 3; i < M::NE; ++i) dx[i] = x[i + 1] - xb[i + 1];
   }
 }
 
-// Σ Qd·dx² and q·q_ref of a state against its reference row.
-template <typename T, typename RK, typename RC>
+// Σ Qd·dx² and q·q_ref (0 for a state without a quaternion) of a state
+// against its reference row.
+template <typename M, typename T, typename RK, typename RC>
 __device__ __forceinline__ void state_terms(const T* x, const RK& x_ref, const RC& Qd, T& sq,
                                             T& dot) {
   sq = T(0), dot = T(0);
 #pragma unroll
-  for (int i = 0; i < NX; ++i) {
+  for (int i = 0; i < M::NX; ++i) {
     const T r = x_ref[i];
     const T d = x[i] - r;
     sq = sq + Qd[i] * d * d;
-    if (i >= 3 && i < 7) dot = dot + x[i] * r;
+    if (M::QI >= 0 && i >= M::QI && i < M::QI + 4) dot = dot + x[i] * r;
   }
 }
 
@@ -614,15 +810,16 @@ __device__ __forceinline__ void friction_sums_pair(const T* u, const RC& Cu, con
 // the knot's rows (RK: x_ref, u_ref, cb, λ) and the constants (RC: Qd, Rd,
 // Cu) may be read from different memories. P = 2: the friction rows split
 // between the alpha's two lanes (friction_sums_pair).
-template <typename T, int NU, int P = 1, typename RK, typename RC>
+template <typename M, typename T, int P = 1, typename RK, typename RC>
 __device__ __forceinline__ T stage_cost(const T* x, const T* u, const RK& x_ref, const RK& u_ref,
                                         const RC& Qd, const RC& Rd, T w, const RC& Cu,
                                         const RK& cb, const RK& lam, int nc, T rho, int h = 0,
                                         int partner = 0) {
+  constexpr int NU = M::NU;
   T stage;
   {
     T sq, dot, su = T(0);
-    state_terms(x, x_ref, Qd, sq, dot);
+    state_terms<M>(x, x_ref, Qd, sq, dot);
 #pragma unroll
     for (int i = 0; i < NU; ++i) {
       const T d = u[i] - u_ref[i];
@@ -630,7 +827,7 @@ __device__ __forceinline__ T stage_cost(const T* x, const T* u, const RK& x_ref,
     }
     stage = T(0.5) * sq;
     stage = stage + T(0.5) * su;
-    stage = stage + w * (T(1) - k_abs(dot));
+    if constexpr (M::QI >= 0) stage = stage + w * (T(1) - k_abs(dot));
   }
   T s_bar = T(0), s_lam = T(0);
   if constexpr (P == 2) {
@@ -653,7 +850,7 @@ __device__ __forceinline__ T stage_cost(const T* x, const T* u, const RK& x_ref,
 
 // u = ū + α·d + K·δx, the rows split between the alpha's two lanes: lane h
 // computes rows h·UH .. h·UH + UH-1 and the pair exchanges them by shuffles.
-template <typename T, int NU>
+template <typename T, int NU, int NE>
 __device__ __forceinline__ void inputs_pair(const T* dx, T alpha, const Sm<T>& us_bar,
                                             const Sm<T>& ds, const Sm<T>& Ks, int h, int partner,
                                             T* u) {
@@ -674,16 +871,17 @@ __device__ __forceinline__ void inputs_pair(const T* dx, T alpha, const Sm<T>& u
 }
 
 // The terminal cost of x against its reference row.
-template <typename T, typename RK, typename RC>
+template <typename M, typename T, typename RK, typename RC>
 __device__ __forceinline__ T terminal_cost(const T* x, const RK& x_ref, const RC& Qdf, T w) {
   T sq, dot;
-  state_terms(x, x_ref, Qdf, sq, dot);
-  return T(0.5) * sq + w * (T(1) - k_abs(dot));
+  state_terms<M>(x, x_ref, Qdf, sq, dot);
+  if constexpr (M::QI >= 0) return T(0.5) * sq + w * (T(1) - k_abs(dot));
+  return T(0.5) * sq;
 }
 
-template <typename T, int NF, int P>
+template <typename T, typename M, int P>
 __global__ void __launch_bounds__(MAX_THREADS) line_search_kernel(const Args<T> a) {
-  constexpr int NU = 3 * NF;
+  constexpr int NX = M::NX, NE = M::NE, NU = M::NU;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const Plan& p = a.plan;
@@ -735,7 +933,7 @@ __global__ void __launch_bounds__(MAX_THREADS) line_search_kernel(const Args<T> 
   cp_async_commit();
   stage_knot(0);
   cp_async_commit();
-  if (in_range && q == 0) load_model<T, NF>(a, b, sm + p.at[SL_MODEL] + s * p.pitch[SL_MODEL]);
+  if (in_range && q == 0) M::load(a, b, sm + p.at[SL_MODEL] + s * p.pitch[SL_MODEL]);
   stamp();
 
   const T h = column(a.in[IN_H], b)[0], rho = column(a.in[IN_RHO], b)[0];
@@ -766,13 +964,13 @@ __global__ void __launch_bounds__(MAX_THREADS) line_search_kernel(const Args<T> 
           T u[NU];
 #pragma unroll
           for (int i = 0; i < NU; ++i) u[i] = us_bar[static_cast<long long>(j) * NU + i];
-          cost = stage_cost<T, NU>(x, u, x_ref.at(static_cast<long long>(j) * NX),
+          cost = stage_cost<M, T>(x, u, x_ref.at(static_cast<long long>(j) * NX),
                                    u_ref.at(static_cast<long long>(j) * NU), Qd, Rd,
                                    w_per_knot ? w[j] : w_const, Cu,
                                    cb.at(cb_per_knot ? static_cast<long long>(j) * nc : 0),
                                    lam.at(static_cast<long long>(j) * nc), nc, rho);
         } else {
-          cost = terminal_cost(x, x_ref.at(static_cast<long long>(N) * NX), Qdf,
+          cost = terminal_cost<M>(x, x_ref.at(static_cast<long long>(N) * NX), Qdf,
                                w_per_knot ? w[N] : w_const);
         }
       }
@@ -821,23 +1019,10 @@ __global__ void __launch_bounds__(MAX_THREADS) line_search_kernel(const Args<T> 
       T u[NU];
       // δx = x ⊖ xs_bar[j]
       T dx[NE];
-      {
-#pragma unroll
-        for (int i = 0; i < 3; ++i) dx[i] = x[i] - xb[i];
-        // δq = q_ref⁻¹ ⊗ q, then its Cayley coordinates dv / dw
-        const T w1 = xb[3], v1[3] = {-xb[4], -xb[5], -xb[6]};
-        const T w2 = x[3], v2[3] = {x[4], x[5], x[6]};
-        const T dw = w1 * w2 - ((v1[0] * v2[0] + v1[1] * v2[1]) + v1[2] * v2[2]);
-        const T cr[3] = {v1[1] * v2[2] - v1[2] * v2[1], v1[2] * v2[0] - v1[0] * v2[2],
-                         v1[0] * v2[1] - v1[1] * v2[0]};
-#pragma unroll
-        for (int i = 0; i < 3; ++i) dx[3 + i] = (w1 * v2[i] + w2 * v1[i] + cr[i]) / dw;
-#pragma unroll
-        for (int i = 6; i < NE; ++i) dx[i] = x[i + 1] - xb[i + 1];
-      }
+      state_diff<M>(x, xb, dx);
       // u = ū + α·d + K·δx
       if constexpr (P == 2) {
-        inputs_pair<T, NU>(dx, alpha, us_bar, ds, Ks, half, G, u);
+        inputs_pair<T, NU, NE>(dx, alpha, us_bar, ds, Ks, half, G, u);
       } else {
 #pragma unroll
         for (int i = 0; i < NU; ++i) {
@@ -855,12 +1040,12 @@ __global__ void __launch_bounds__(MAX_THREADS) line_search_kernel(const Args<T> 
 #pragma unroll
         for (int i = 0; i < NU; ++i) traj[(urow + i) * tst] = u[i];
       }
-      const T stage = stage_cost<T, NU, P>(
+      const T stage = stage_cost<M, T, P>(
           x, u, view(SL_XREF, buf), view(SL_UREF, buf), Qd, Rd,
           w_per_knot ? view(SL_WK, buf)[0] : view(SL_W, 0)[0], Cu,
           cb_per_knot ? view(SL_CBK, buf) : view(SL_CB, 0), view(SL_LAM, buf), nc, rho, half, G);
       stages = stages + stage;
-      midpoint_step<T, NF>(x, u, model, h);
+      M::step(x, u, model, h);
     }
     stamp();
   }
@@ -870,7 +1055,7 @@ __global__ void __launch_bounds__(MAX_THREADS) line_search_kernel(const Args<T> 
   T J_k = T(0);
   if (in_range) {
     const int buf = N & 1;
-    J_k = stages + terminal_cost(x, view(SL_XREF, buf), Qdf,
+    J_k = stages + terminal_cost<M>(x, view(SL_XREF, buf), Qdf,
                                  w_per_knot ? view(SL_WK, buf)[0] : view(SL_W, 0)[0]);
     if (keep) {
 #pragma unroll
@@ -935,10 +1120,11 @@ __global__ void __launch_bounds__(MAX_THREADS) line_search_kernel(const Args<T> 
   stamp();
 }
 
-// The kernel's arguments from the wrapper's tables, with the launch's plan.
-template <typename T>
+// The kernel's arguments from the wrapper's tables, with the launch's plan
+// for model M.
+template <typename T, typename M>
 Args<T> make_args(const void* const* in, const long long* ld, void* const* out, int N, int B,
-                  int K, int n_feet, int nc, int flags, int sms) {
+                  int K, int nc, int flags, int sms) {
   Args<T> a;
   for (int i = 0; i < INPUTS; ++i) a.in[i] = View<T>{static_cast<const T*>(in[i]), ld[i]};
   a.alphas = static_cast<const T*>(in[IN_ALPHAS]);
@@ -952,8 +1138,32 @@ Args<T> make_args(const void* const* in, const long long* ld, void* const* out, 
   a.improved = static_cast<unsigned char*>(out[IMPROVED]);
   a.costs = static_cast<T*>(out[COSTS]);
   a.N = N, a.B = B, a.K = K, a.nc = nc, a.flags = flags;
-  a.plan = make_plan<T>(ld, N, B, K, 3 * n_feet, nc, flags, sms);
+  a.plan = make_plan<T>(ld, N, B, K, M::NX, M::NE, M::NU, M::VALUES, nc, flags, sms);
   return a;
+}
+
+template <template <int> class Family, typename Fn>
+int with_feet(int n_feet, Fn& fn) {
+  switch (n_feet) {
+    case 1: return fn.template run<Family<1>>();
+    case 2: return fn.template run<Family<2>>();
+    case 3: return fn.template run<Family<3>>();
+    case 4: return fn.template run<Family<4>>();
+  }
+  return -1;
+}
+
+// fn.template run<M>() with M the model of instantiation `model` (enum Model)
+// at n_feet feet (1 for the attitude model); -1 where there is none.
+template <typename Fn>
+int with_model(int model, int n_feet, Fn& fn) {
+  switch (model) {
+    case QUAT_SRB_MIDPOINT: return with_feet<QuatSrbMidpoint>(n_feet, fn);
+    case EULER_SRB_MIDPOINT: return with_feet<EulerSrbMidpoint>(n_feet, fn);
+    case EULER_SRB_EULER: return with_feet<EulerSrbEuler>(n_feet, fn);
+    case ATTITUDE_MIDPOINT: return n_feet == 1 ? fn.template run<AttitudeMidpoint>() : -1;
+  }
+  return -1;
 }
 
 }  // namespace
@@ -963,6 +1173,10 @@ extern "C" void line_search_table(int* out) {
   out[0] = INPUTS;
   out[1] = OUTPUTS;
 }
+
+// The instantiations' tags, space-separated, in the order of their indices
+// (the flags' model bits).
+extern "C" const char* line_search_tags() { return TAGS; }
 
 #ifdef __CUDACC__  // the host side: the launch and the C interface
 
@@ -981,37 +1195,44 @@ inline int multiprocessors() {
   return known[device];
 }
 
-template <typename T, int NF, int P>
+template <typename T, typename M, int P>
 int launch_lanes(const Args<T>& a, void* stream) {
   // Above 48 KB a block's dynamic shared memory has to be asked for; once.
   static const cudaError_t allowed = cudaFuncSetAttribute(
-      line_search_kernel<T, NF, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      line_search_kernel<T, M, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(SMEM_LIMIT));
   if (allowed != cudaSuccess) return static_cast<int>(allowed);
-  line_search_kernel<T, NF, P><<<a.plan.blocks, a.plan.threads, a.plan.bytes,
-                                 static_cast<cudaStream_t>(stream)>>>(a);
+  line_search_kernel<T, M, P><<<a.plan.blocks, a.plan.threads, a.plan.bytes,
+                                static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NF>
-int launch_feet(const Args<T>& a, void* stream) {
-  return a.plan.P == 2 ? launch_lanes<T, NF, 2>(a, stream) : launch_lanes<T, NF, 1>(a, stream);
-}
+// One launch of model M's kernel (with_model's fn).
+template <typename T>
+struct Launch {
+  const void* const* in;
+  const long long* ld;
+  void* const* out;
+  int N, B, K, nc, flags;
+  void* stream;
+
+  template <typename M>
+  int run() {
+    const Args<T> a = make_args<T, M>(in, ld, out, N, B, K, nc, flags, multiprocessors());
+    if (a.plan.bytes > SMEM_LIMIT || (a.plan.traj_at < 0 && a.scratch == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return a.plan.P == 2 ? launch_lanes<T, M, 2>(a, stream) : launch_lanes<T, M, 1>(a, stream);
+  }
+};
 
 template <typename T>
 int launch(const void* const* in, const long long* ld, void* const* out, int N, int B, int K,
            int n_feet, int nc, int flags, void* stream) {
   if (N < 1 || B < 1 || K < 1 || K > 32 || nc < 0 || n_feet < 1 || n_feet > 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args<T> a = make_args<T>(in, ld, out, N, B, K, n_feet, nc, flags, multiprocessors());
-  if (a.plan.bytes > SMEM_LIMIT || (a.plan.traj_at < 0 && a.scratch == nullptr))
-    return static_cast<int>(cudaErrorInvalidValue);
-  switch (n_feet) {
-    case 1: return launch_feet<T, 1>(a, stream);
-    case 2: return launch_feet<T, 2>(a, stream);
-    case 3: return launch_feet<T, 3>(a, stream);
-    default: return launch_feet<T, 4>(a, stream);
-  }
+  Launch<T> fn{in, ld, out, N, B, K, nc, flags, stream};
+  const int err = with_model(flags >> MODEL_SHIFT, n_feet, fn);
+  return err < 0 ? static_cast<int>(cudaErrorInvalidValue) : err;
 }
 
 }  // namespace

@@ -480,30 +480,50 @@ def line_search_inputs(spec, prob: FleetProblem, n_alphas: int = 12, lam=None,
 def line_search_case(name: str, batch: int, dtype: torch.dtype, device=None, horizon: int = 10,
                      n_alphas: int = 12, seed: int = 0):
     """(spec, prob, inputs): the line search of a first iLQR iteration
-    (`line_search_inputs`) on a quaternion-SRB problem of K2's: "standing",
-    the Go1 fleet controller's problem on `standing_batch` (every leaf per
-    scenario, ``horizon`` knots); "fixture", the golden standing fixture
-    (N = 20, the references, weights and parameters shared along B); or
-    "humanoid", the two-footed scenario (N = ``horizon``) tiled. The inputs
-    us_init of "fixture" and "humanoid" get seeded noise of 2 N a force, so
-    that their scenarios differ."""
+    (`line_search_inputs`) on a problem of one of K2's models. The quaternion
+    SRB: "standing", the Go1 fleet controller's problem on `standing_batch`
+    (every leaf per scenario, ``horizon`` knots); "fixture", the golden
+    standing fixture (N = 20, the references, weights and parameters shared
+    along B); or "humanoid", the two-footed scenario (N = ``horizon``)
+    tiled. The Euler SRB: "convex", the convex fleet controller's problem on
+    `standing_batch` (midpoint rule, every leaf per scenario), or
+    "convex_fixture", the golden convex fixture (forward Euler, N = 30, its
+    leaves shared along B). The attitude model: "falling_cat", the
+    `falling_cat_fleet` (N = ``horizon``). The inputs us_init of the
+    problems tiled from one ("fixture", "humanoid", "convex_fixture") get
+    seeded noise of 2 N a force, falling_cat's of 0.5 N·m a torque, so that
+    their scenarios and their rollouts differ."""
     from quaternion_mpc_tpu_torch.solver import al_ilqr
 
     device = _bridge.resolve_device(device)
+    noise_scale = 2.0
     if name == "standing":
         spec = quat_mpc.FLEET_MODEL_SPEC
         prob = quat_mpc.build_fleet_problem(
             *standing_batch(batch, horizon, dtype, device, seed), horizon)
+    elif name == "convex":
+        spec = convex_mpc.FLEET_MODEL_SPEC
+        prob = convex_mpc.build_fleet_problem(
+            *standing_batch(batch, horizon, dtype, device, seed, controller="convex"), horizon)
     elif name == "fixture":
         spec = quat_mpc.FLEET_MODEL_SPEC
         prob = fixture_fleet_problem(batch, dtype, device)[0]
-    elif name == "humanoid":
-        sspec, sprob, _ = scenarios.humanoid(N=horizon, dtype=dtype, device=device)
+    elif name in ("humanoid", "convex_fixture", "falling_cat"):
+        if name == "humanoid":
+            sspec, sprob, _ = scenarios.humanoid(N=horizon, dtype=dtype, device=device)
+            sprob = broadcast_problem(sprob, batch)
+        elif name == "convex_fixture":
+            sspec, sprob = fixture_problem("convex", dtype, device)[:2]
+            sprob = broadcast_problem(sprob, batch)
+        else:
+            sspec, sprob, _ = falling_cat_fleet(batch, dtype, device, seed, N=horizon)
+            noise_scale = 0.5
         spec = al_ilqr.fleet_spec(sspec)
-        prob = al_ilqr.lift_problem(broadcast_problem(sprob, batch))
+        prob = al_ilqr.lift_problem(sprob)
     else:
         raise ValueError(f"unknown line-search case {name!r}")
-    if name != "standing":
+    if name not in ("standing", "convex"):
         noise = np.random.default_rng(seed).standard_normal(tuple(prob.us_init.shape))
-        prob = prob._replace(us_init=prob.us_init + 2.0 * _bridge.tensor(noise, device, dtype))
+        prob = prob._replace(
+            us_init=prob.us_init + noise_scale * _bridge.tensor(noise, device, dtype))
     return spec, prob, line_search_inputs(spec, prob, n_alphas)

@@ -54,6 +54,9 @@ def attitude_dynamics_fleet(x: torch.Tensor, u: torch.Tensor, p: AttitudeParams)
 
 
 attitude_dynamics = single_view(attitude_dynamics_fleet)
+# the tag of the model in K2 (kernels/line_search.py), which runs its line
+# search under the midpoint rule
+attitude_dynamics.line_search = "attitude"
 
 
 def torque_box(tau_max: float, *, dtype: torch.dtype, device=None):

@@ -375,8 +375,9 @@ quat_srb_jacobian = single_view(quat_srb_jacobian_fleet)
 # the structured error-state discrete Jacobian of the midpoint step, which a
 # solver may take in place of discretizing `quat_srb_jacobian`
 quat_srb_dynamics.edj = quat_srb_error_discrete_jac_fleet
-# the kernel that runs the line search of this model under the midpoint rule
-# (K2, kernels/line_search.py)
-quat_srb_dynamics.line_search = "quat_srb_midpoint"
+# the tag of the model in K2 (kernels/line_search.py), whose instantiations
+# run the line search of this model under the integrators they name
+quat_srb_dynamics.line_search = "quat_srb"
 euler_srb_dynamics = single_view(euler_srb_dynamics_fleet)
+euler_srb_dynamics.line_search = "euler_srb"  # midpoint rule and forward Euler
 euler_srb_jacobian = single_view(euler_srb_jacobian_fleet)

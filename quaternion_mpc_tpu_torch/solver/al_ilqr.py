@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from quaternion_mpc_tpu_torch.kernels import line_search as _k2
 from quaternion_mpc_tpu_torch.models import fleet_form, params_to_fleet
 from quaternion_mpc_tpu_torch.solver.fleet import (
     FleetModelSpec,
@@ -47,10 +48,13 @@ def fleet_spec(spec: ModelSpec) -> FleetModelSpec:
     """The batch-last spec behind a `ModelSpec` of single views. A model
     that carries a structured error-state Jacobian of its midpoint step
     (``f.edj``, the quaternion SRB) keeps it, as its fleet controller does,
-    and so does the tag of the kernel that runs its line search under the
-    midpoint rule (``f.line_search``, K2 for the quaternion SRB)."""
+    and a model tagged for K2 (``f.line_search``: the quaternion SRB, the
+    Euler SRB, the attitude model) keeps its tag where K2 has an
+    instantiation for the spec's integrator (`kernels.line_search.
+    instantiation`)."""
     midpoint = spec.integrator == "midpoint"
     structured = midpoint and spec.fj is not None
+    tag = getattr(spec.f, "line_search", None)
     return FleetModelSpec(
         nx=spec.nx,
         nu=spec.nu,
@@ -59,7 +63,7 @@ def fleet_spec(spec: ModelSpec) -> FleetModelSpec:
         quat_idx=spec.quat_idx,
         edj=getattr(spec.f, "edj", None) if structured else None,
         integrator=spec.integrator,
-        line_search=getattr(spec.f, "line_search", None) if midpoint else None,
+        line_search=tag if _k2.instantiation(tag, spec.integrator) else None,
     )
 
 

@@ -22,8 +22,9 @@ Pallas backend, experiments/pallas_fleet.py riccati_backward_pallas) or the
 horizon-parallel associative scan (`solver.parallel_riccati`, whose scan is
 the K4 CUDA kernel `kernels.assoc_scan`). The line search (`line_search`:
 the rollouts over every alpha, their AL costs, the Armijo test and the
-select) is the K2 CUDA kernel `kernels.line_search` for a spec tagged
-``line_search="quat_srb_midpoint"`` and plain PyTorch for every other.
+select) is the K2 CUDA kernel `kernels.line_search` for a spec tagged with
+a model K2 has an instantiation of (``line_search`` "quat_srb", "euler_srb"
+or "attitude") and plain PyTorch for every other.
 Everything else is plain PyTorch.
 """
 
@@ -121,9 +122,13 @@ class FleetModelSpec(NamedTuple):
          Jacobian, equal to E(x1)ᵀ·discretize(fj)·E(x)
     integrator: "midpoint" (every fleet controller) or "euler" (the golden
          convex fixture), read by the step and by the dense Jacobian path
-    line_search: the kernel that runs the line search of this model, or
-         None for the plain version: "quat_srb_midpoint" (K2,
-         `kernels.line_search`) for the quaternion SRB under the midpoint rule
+    line_search: the model's tag in K2 (`kernels.line_search`), whose
+         instantiation for the spec's integrator runs its line search, or
+         None for the plain version: "quat_srb" (the quaternion SRB, midpoint
+         rule), "euler_srb" (the Euler SRB of the convex baseline, midpoint
+         rule or forward Euler) or "attitude" (falling_cat's attitude model,
+         midpoint rule); `solver.al_ilqr.fleet_spec` sets it only where that
+         instantiation exists
     """
 
     nx: int

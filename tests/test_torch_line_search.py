@@ -9,18 +9,24 @@ NaN-safe select (:757-799). Same seeded inputs on both sides, f64, held to
 1e-12 of scale: the per-alpha costs (non-finite in the same places), xs,
 us and J, and accepted and improved exactly.
 
-Problems: the golden standing fixture's (N = 20, leaves shared along B),
-the Go1 fleet controller's (four feet, every leaf per scenario) and the
-humanoid's (two feet); on the controller's, an alpha whose rollout
-overflows to Inf / NaN, a scenario that accepts nothing, `done` scenarios,
-per-knot w and cb with a terminal weight Qdf, and a weight row shared by
-the fleet (B|1). The reference's fleet problem has one geodesic weight for
-the horizon, so a per-knot w is composed from its `stage_cost_terms` and
-`al_value` knot by knot.
+Problems of each model K2 has an instantiation for: the quaternion SRB's
+golden standing fixture (N = 20, leaves shared along B), Go1 fleet
+controller (four feet, every leaf per scenario) and humanoid (two feet);
+the Euler SRB's convex fleet controller (midpoint rule) and golden convex
+fixture (forward Euler, N = 30, leaves shared along B); the attitude
+model's falling_cat fleet (N = 8, per-knot w, Qdf). On the quaternion
+controller's problem, an alpha whose rollout overflows to Inf / NaN, a
+scenario that accepts nothing, `done` scenarios, per-knot w and cb with a
+terminal weight Qdf, and a weight row shared by the fleet (B|1). The
+reference's fleet problem has one geodesic weight for the horizon, so a
+per-knot w is composed from its `stage_cost_terms` and `al_value` knot by
+knot. The reference has its attitude model in the single form only: its
+fleet form here is `jax.vmap` of it over the batch axis.
 
-Then the tag: the quaternion SRB's specs carry K2's, every other model's
-none; a tagged solve calls K2's wrapper once an iLQR iteration and an
-untagged one never; and the wrapper's own checks on the CPU."""
+Then the tags: each model's specs carry its own where K2 has an
+instantiation for the spec's integrator, every other spec none; a tagged
+solve calls K2's wrapper once an iLQR iteration and an untagged one never;
+and the wrapper's own checks on the CPU."""
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +34,9 @@ import numpy as np
 import pytest
 import torch
 
+from quaternion_mpc_tpu.control import convex_mpc as jcv
 from quaternion_mpc_tpu.control import quat_mpc as jq
+from quaternion_mpc_tpu.models import attitude as jattitude
 from quaternion_mpc_tpu.models import srb as jsrb
 from quaternion_mpc_tpu.solver import fleet as jfl
 from quaternion_mpc_tpu_torch import examples
@@ -60,15 +68,33 @@ def _j(t):
 
 def _jax_problem(prob):
     """The reference's FleetProblem with the port's leaves (it has no Cx)."""
-    params = jsrb.SrbParams(*(_j(getattr(prob.params, f)) for f in jsrb.SrbParams._fields))
+    kind = jattitude.AttitudeParams if isinstance(prob.params, tattitude.AttitudeParams) \
+        else jsrb.SrbParams
+    params = kind(*(_j(getattr(prob.params, f)) for f in kind._fields))
     return jfl.FleetProblem(**{f: _j(getattr(prob, f)) for f in jfl.FleetProblem._fields
                                if f != "params"}, params=params)
 
 
-def _jax_spec(nu):
-    if nu == 12:
+def _jax_attitude_fleet(x, u, p):
+    """The reference's attitude model over a batch-last fleet: `jax.vmap` of
+    its single form over the last axis of x, u and the inertia (B or 1)."""
+    inertia = jnp.broadcast_to(p.inertia, (3, 3, x.shape[-1]))
+    one = lambda x1, u1, i1: jattitude.attitude_dynamics(x1, u1, jattitude.AttitudeParams(i1))
+    return jax.vmap(one, in_axes=(-1, -1, -1), out_axes=-1)(x, u, inertia)
+
+
+def _jax_spec(spec):
+    """The reference's FleetModelSpec of the port's."""
+    if spec.line_search == "euler_srb":
+        return jfl.FleetModelSpec(nx=12, nu=spec.nu, f=jsrb.euler_srb_dynamics_fleet,
+                                  fj=jsrb.euler_srb_jacobian_fleet, quat_idx=None,
+                                  integrator=spec.integrator)
+    if spec.line_search == "attitude":
+        return jfl.FleetModelSpec(nx=7, nu=3, f=_jax_attitude_fleet, fj=None, quat_idx=0,
+                                  integrator=spec.integrator)
+    if spec.nu == 12:
         return jq._fleet_spec()
-    return jfl.FleetModelSpec(nx=13, nu=nu, f=jsrb.quat_srb_dynamics_fleet,
+    return jfl.FleetModelSpec(nx=13, nu=spec.nu, f=jsrb.quat_srb_dynamics_fleet,
                               fj=jsrb.quat_srb_jacobian_fleet, quat_idx=3)
 
 
@@ -87,7 +113,8 @@ def _jax_total_cost(spec, xs, us, prob, lam, rho):
         ) + jfl.al_value(c, lam[k], rho)
     dxN = xs[N] - prob.x_ref[N]
     Qdf = prob.Qd if prob.Qdf is None else prob.Qdf
-    dot = jnp.sum(xs[N][3:7] * prob.x_ref[N][3:7], axis=0)
+    qi = spec.quat_idx
+    dot = jnp.sum(xs[N][qi : qi + 4] * prob.x_ref[N][qi : qi + 4], axis=0)
     return total + 0.5 * jnp.sum(Qdf * dxN * dxN, axis=0) + prob.w[N] * (1.0 - jnp.abs(dot))
 
 
@@ -131,7 +158,7 @@ def _hold(spec, prob, kw, what):
     """The port's plain line search against the reference's on the same inputs."""
     got = tfl.line_search(spec, prob, **kw, with_costs=True)
     jkw = {k: _j(v) for k, v in kw.items()}
-    want = _jax_line_search(_jax_spec(spec.nu), _jax_problem(prob), **jkw)
+    want = _jax_line_search(_jax_spec(spec), _jax_problem(prob), **jkw)
     xs, us, J, J_out, accepted, improved, J_m = (np.asarray(a) for a in want)
     g = [t.numpy() for t in got]
     fin = np.isfinite(J_m)
@@ -148,7 +175,8 @@ def _hold(spec, prob, kw, what):
 @pytest.mark.parametrize("priced", [False, True], ids=["J_given", "J_priced"])
 @pytest.mark.parametrize(
     "name,batch,horizon,n_alphas",
-    [("fixture", 4, 20, 12), ("standing", 6, 10, 8), ("humanoid", 4, 6, 12)],
+    [("fixture", 4, 20, 12), ("standing", 6, 10, 8), ("humanoid", 4, 6, 12),
+     ("convex", 6, 10, 8), ("convex_fixture", 4, 30, 12), ("falling_cat", 5, 8, 12)],
 )
 def test_plain_line_search_matches_jax(name, batch, horizon, n_alphas, priced):
     """``priced``: J None, the cost of (xs, us) priced by the line search
@@ -225,28 +253,49 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take():
         k2.check_inputs(spec, prob, **{**kw, "done": kw["done"].to(F64)})
 
 
-def test_the_tag_reaches_the_quaternion_srb_specs_only():
-    assert tq.FLEET_MODEL_SPEC.line_search == k2.TAG
-    assert tal.fleet_spec(tq.MODEL_SPEC).line_search == k2.TAG
+def test_each_spec_carries_its_models_tag_where_k2_has_an_instantiation():
+    """The quaternion SRB's specs carry "quat_srb", the Euler SRB's (the
+    convex fleet controller's, the single convex controller's and the convex
+    fixture's under forward Euler) "euler_srb", falling_cat's "attitude";
+    the classic models none, nor the quaternion SRB under forward Euler,
+    which K2 has no instantiation for."""
+    assert tq.FLEET_MODEL_SPEC.line_search == "quat_srb"
+    assert tal.fleet_spec(tq.MODEL_SPEC).line_search == "quat_srb"
     for name in ("humanoid", "spider_dog"):
         spec = getattr(tsc, name)(dtype=F64, device="cpu")[0]
-        assert tal.fleet_spec(spec).line_search == k2.TAG, name
+        assert tal.fleet_spec(spec).line_search == "quat_srb", name
     spec, _, _ = tsc.falling_cat(dtype=F64, device="cpu")
+    fixture = examples.fixture_problem("convex", F64, "cpu")[0]
+    tagged = {
+        "euler_srb_midpoint": [tcv.FLEET_MODEL_SPEC, tal.fleet_spec(tcv.MODEL_SPEC)],
+        "euler_srb_euler": [tal.fleet_spec(fixture)],
+        "attitude_midpoint": [
+            tal.fleet_spec(spec),
+            tal.fleet_spec(ModelSpec(nx=7, nu=3, f=tattitude.attitude_dynamics, quat_idx=0)),
+        ],
+        "quat_srb_midpoint": [tq.FLEET_MODEL_SPEC],
+    }
+    for name, specs in tagged.items():
+        for s in specs:
+            assert k2.instantiation(s.line_search, s.integrator) == name, (name, s)
     untagged = [
-        tcv.FLEET_MODEL_SPEC,
-        tal.fleet_spec(tcv.MODEL_SPEC),
-        tal.fleet_spec(spec),  # the attitude model
-        tal.fleet_spec(ModelSpec(nx=7, nu=3, f=tattitude.attitude_dynamics, quat_idx=0)),
         tal.fleet_spec(ModelSpec(nx=4, nu=2, f=tclassic.bicycle_dynamics, quat_idx=None)),
-        # the quaternion SRB under forward Euler: K2 steps the midpoint rule only
+        # the quaternion SRB under forward Euler: K2 steps it by the midpoint rule only
         tal.fleet_spec(ModelSpec(nx=13, nu=12, f=tsrb.quat_srb_dynamics,
                                  fj=tsrb.quat_srb_jacobian, quat_idx=3, integrator="euler")),
+        # the attitude model under forward Euler
+        tal.fleet_spec(ModelSpec(nx=7, nu=3, f=tattitude.attitude_dynamics, quat_idx=0,
+                                 integrator="euler")),
     ]
     assert all(s.line_search is None for s in untagged)
 
 
-@pytest.mark.parametrize("tagged", [True, False], ids=["quat_srb", "convex"])
-def test_a_tagged_solve_calls_k2_once_an_iteration(monkeypatch, tagged):
+@pytest.mark.parametrize("problem", ["quat_srb", "convex", "convex_fixture", "falling_cat",
+                                     "pendulum"])
+def test_a_tagged_solve_calls_k2_once_an_iteration(monkeypatch, problem):
+    """A solve of each tagged model calls K2's wrapper al x ilqr times (the
+    quaternion fleet under both backward passes); the pendulum's, untagged,
+    never."""
     calls = []
 
     def spy(*args, **kw):
@@ -255,7 +304,7 @@ def test_a_tagged_solve_calls_k2_once_an_iteration(monkeypatch, tagged):
 
     monkeypatch.setattr(k2, "line_search", spy)
     batch = 3
-    if tagged:
+    if problem == "quat_srb":
         opts = SolverOptions(al_iterations=2, ilqr_iterations=3, max_linesearch=8)
         prob = tq.build_fleet_problem(*examples.standing_batch(batch, 6, F64, "cpu"), 6)
         tfl.make_fleet_solver(tq.FLEET_MODEL_SPEC, opts, backend="sweep")(prob)
@@ -263,9 +312,53 @@ def test_a_tagged_solve_calls_k2_once_an_iteration(monkeypatch, tagged):
         calls.clear()
         tfl.make_fleet_solver(tq.FLEET_MODEL_SPEC, opts, backend="assoc")(prob)
         assert len(calls) == 2 * 3
-    else:
+    elif problem == "convex":
         opts = SolverOptions(al_iterations=1, ilqr_iterations=5, max_linesearch=8)
         fbk, cmd, wts = examples.standing_batch(batch, 6, F64, "cpu", controller="convex")
         prob = tcv.build_fleet_problem(fbk, cmd, wts, 6)
         tfl.make_fleet_solver(tcv.FLEET_MODEL_SPEC, opts, backend="sweep")(prob)
+        assert len(calls) == 5
+    elif problem == "convex_fixture":
+        spec, prob = examples.fixture_problem("convex", F64, "cpu")[:2]
+        opts = SolverOptions(al_iterations=2, ilqr_iterations=2)
+        tal.make_solver(spec, opts)(prob)
+        assert len(calls) == 2 * 2
+    elif problem == "falling_cat":
+        spec, prob, _ = examples.falling_cat_fleet(batch, F64, "cpu", N=6)
+        opts = SolverOptions(al_iterations=2, ilqr_iterations=3)
+        tal.make_solver(spec, opts)(prob)
+        assert len(calls) == 2 * 3
+    else:
+        spec, prob = examples.classic_problem("pendulum", 6, F64, "cpu")
+        tal.make_solver(spec, SolverOptions(al_iterations=1, ilqr_iterations=2))(prob)
         assert not calls
+
+
+@pytest.mark.parametrize("name,batch,horizon,n_alphas",
+                         [("standing", 16, 10, 8), ("humanoid", 7, 6, 12), ("convex", 16, 10, 8),
+                          ("falling_cat", 13, 8, 12)])
+def test_conditioned_sets_aside_the_runaway_rollouts_only(name, batch, horizon, n_alphas):
+    """`kernels.line_search.conditioned` sets aside a cost exactly where the
+    plain version's rollout (f64 or f32) leaves the unit sphere by more than
+    RUNAWAY while finite, and a scenario exactly where the selected rollout
+    does: nothing of the quaternion SRB's or the Euler SRB's problems, some
+    of falling_cat's first iteration at its steep starts."""
+    spec, prob, kw = examples.line_search_case(name, batch, F64, "cpu", horizon, n_alphas)
+    costs, scenarios = k2.conditioned(spec, prob, kw)
+    assert costs.shape == (n_alphas, batch) and scenarios.shape == (batch,)
+    if spec.quat_idx is None or name != "falling_cat":
+        assert bool(costs.all()) and bool(scenarios.all())
+        return
+    qi = spec.quat_idx
+    xs, _ = tfl.rollout(spec, prob, kw["xs"], kw["us"], kw["Ks"], kw["ds"],
+                        kw["alphas"][:, None, None])
+    off = (torch.linalg.vector_norm(xs[:, :, qi:qi + 4, :], dim=2) - 1.0).abs()
+    away = (torch.where(torch.isfinite(off), off, 0.0) > k2.RUNAWAY).any(1)
+    assert bool(away.any()), "the steep starts' full step runs away"
+    out = tfl.line_search(spec, prob, **kw, with_costs=True)
+    # every finite runaway cost is set aside; and in f64 every cost set aside runs away
+    assert not bool((away & torch.isfinite(out[6]) & costs).any())
+    assert not bool((~costs & ~away).any())
+    ok = tfl.armijo_ok(out[2], out[6], kw["dV1"], kw["dV2"], kw["alphas"])
+    first = ok & (torch.cumsum(ok.to(torch.int32), 0) == 1)
+    assert not bool(((away & first).any(0) & scenarios).any()), "a runaway selection held"

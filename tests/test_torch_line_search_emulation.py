@@ -4,10 +4,14 @@ own input table (`kernels.line_search.check_inputs`, `c_tables`: the card's
 path), held against the plain version (`line_search_ref`, the port's
 `solver.fleet.line_search`) on the same inputs.
 
-Cases: the Go1 standing fleet's problem (every leaf per scenario), the
-golden fixture's (references, weights and parameters shared along B, read
-with batch stride 0) and the two-footed humanoid's; K = 8 and 12 (8 and 16
-lanes a scenario), N = 6, 10 and 20, B with a ragged last block; and, on
+Cases, for each model K2 is instantiated for: the quaternion SRB's Go1
+standing fleet problem (every leaf per scenario), golden fixture
+(references, weights and parameters shared along B, read with batch stride
+0) and two-footed humanoid; the Euler SRB's convex fleet problem (midpoint
+rule) and golden convex fixture (forward Euler, N = 30, leaves shared); the
+attitude model's falling_cat fleet (per-knot w, Qdf, a runaway start); K = 8
+and 12 (8 and 16 lanes a scenario), N = 6 to 40, B with a ragged last
+block; and, on
 the standing problem, an alpha whose rollout overflows to Inf / NaN, a
 scenario that accepts no alpha, `done` scenarios, per-knot w and cb with a
 terminal weight Qdf, and one scenario past a whole warp of 32 alphas. The
@@ -25,7 +29,12 @@ f32 is held to the f32 plain version: J_k to 1e-4 of max(|J_k|, |J|), then
 xs, us and J to 1e-4 of scale in every scenario whose selected alpha both
 sides agree on; a scenario where they differ (a flip, from summing in
 another order) must be a margin case, both sides' costs within that
-tolerance of the Armijo threshold (`kernels.line_search.compare`). Each
+tolerance of the Armijo threshold (`kernels.line_search.compare`). A
+rollout that runs away (its quaternion off the unit sphere by more than
+`kernels.line_search.RUNAWAY`: falling_cat's steep starts at a large step)
+amplifies rounding without bound: its cost is not held, nor a scenario
+where such a rollout passes the Armijo test (`conditioned`; no
+quaternion-SRB or Euler-SRB case has one). Each
 main case runs with J given and with J None, where the kernel prices
 xs_bar and us_bar itself (an AL iteration's first line search).
 Needs a host C++17 compiler (g++); without one the tests skip."""
@@ -57,41 +66,52 @@ _HARNESS = r"""
 #include "line_search.cu"
 
 
-template <typename T, int NF>
-static int run_feet(const Args<T>& a) {
-  return a.plan.P == 2
-             ? emulate_blocks(a.plan.blocks, a.plan.threads, line_search_kernel<T, NF, 2>, a)
-             : emulate_blocks(a.plan.blocks, a.plan.threads, line_search_kernel<T, NF, 1>, a);
-}
+// with_model's fn: the launch's blocks one after another, or its plan
+template <typename T>
+struct Run {
+  const void* const* in;
+  const long long* ld;
+  void* const* out;
+  int N, B, K, nc, flags, sms;
+  int* plan;  // null: run the blocks
+
+  template <typename M>
+  int run() {
+    const Args<T> a = make_args<T, M>(in, ld, out, N, B, K, nc, flags, sms);
+    if (plan != nullptr) {
+      plan[0] = a.plan.P, plan[1] = a.plan.S, plan[2] = a.plan.traj_at >= 0;
+      return 0;
+    }
+    return a.plan.P == 2
+               ? emulate_blocks(a.plan.blocks, a.plan.threads, line_search_kernel<T, M, 2>, a)
+               : emulate_blocks(a.plan.blocks, a.plan.threads, line_search_kernel<T, M, 1>, a);
+  }
+};
 template <typename T>
 static int run(const void* const* in, const long long* ld, void* const* out, int N, int B, int K,
-               int n_feet, int nc, int flags, int sms) {
-  const Args<T> a = make_args<T>(in, ld, out, N, B, K, n_feet, nc, flags, sms);
-  switch (n_feet) {
-    case 1: return run_feet<T, 1>(a);
-    case 2: return run_feet<T, 2>(a);
-    case 3: return run_feet<T, 3>(a);
-    case 4: return run_feet<T, 4>(a);
-  }
-  return 2;
+               int n_feet, int nc, int flags, int sms, int* plan) {
+  Run<T> fn{in, ld, out, N, B, K, nc, flags, sms, plan};
+  const int err = with_model(flags >> MODEL_SHIFT, n_feet, fn);
+  return err < 0 ? 2 : err;
 }
 // sms: the multiprocessors the blocks are planned for (an H100's 132 as on
 // the card; 1 for the plans of a full card at a small B)
 extern "C" int emulated_f32(const void* const* in, const long long* ld, void* const* out,
                             int N, int B, int K, int n_feet, int nc, int flags, int sms) {
-  return run<float>(in, ld, out, N, B, K, n_feet, nc, flags, sms);
+  return run<float>(in, ld, out, N, B, K, n_feet, nc, flags, sms, nullptr);
 }
 extern "C" int emulated_f64(const void* const* in, const long long* ld, void* const* out,
                             int N, int B, int K, int n_feet, int nc, int flags, int sms) {
-  return run<double>(in, ld, out, N, B, K, n_feet, nc, flags, sms);
+  return run<double>(in, ld, out, N, B, K, n_feet, nc, flags, sms, nullptr);
 }
 // the launch's plan: lanes an alpha, scenarios a block, and 1 where it keeps
 // its trajectories in shared memory, 0 in the scratch
 extern "C" void plan_of(int is_f64, const void* const* in, const long long* ld, void* const* out,
                         int N, int B, int K, int n_feet, int nc, int flags, int sms, int* plan) {
-  const Plan p = is_f64 ? make_args<double>(in, ld, out, N, B, K, n_feet, nc, flags, sms).plan
-                        : make_args<float>(in, ld, out, N, B, K, n_feet, nc, flags, sms).plan;
-  plan[0] = p.P, plan[1] = p.S, plan[2] = p.traj_at >= 0;
+  if (is_f64)
+    run<double>(in, ld, out, N, B, K, n_feet, nc, flags, sms, plan);
+  else
+    run<float>(in, ld, out, N, B, K, n_feet, nc, flags, sms, plan);
 }
 """
 
@@ -130,7 +150,7 @@ def _emulated(lib, spec, prob, kw, in_shared=None, sms=SMS):
     the device-memory scratch), or None; ``sms``: the multiprocessors its
     blocks are planned for."""
     table, extras, dims = k2.check_inputs(spec, prob, **kw)
-    outputs, scratch = k2.new_outputs(*dims[:4], kw["xs"], True)
+    outputs, scratch = k2.new_outputs(dims, kw["xs"], True)
     for t in (*outputs, scratch):
         t.fill_(True if t.dtype == torch.bool else float("nan"))
     is_f64 = kw["xs"].dtype == torch.float64
@@ -154,7 +174,8 @@ def _hold(lib, spec, prob, kw, what, in_shared=None, sms=SMS):
     dtype = kw["xs"].dtype
     got = _emulated(lib, spec, prob, kw, in_shared, sms)
     want = k2.line_search_ref(spec, prob, **kw, with_costs=True)
-    res = k2.compare(got, want, kw["dV1"], kw["dV2"], kw["alphas"], RTOL[dtype])
+    res = k2.compare(got, want, kw["dV1"], kw["dV2"], kw["alphas"], RTOL[dtype],
+                     held=k2.conditioned(spec, prob, kw))
     assert res["nonfinite_same"], f"{what}: the costs are non-finite in other places"
     assert res["costs_err"] <= RTOL[dtype], f"{what}: J_k {res}"
     if dtype == torch.float64:
@@ -170,6 +191,8 @@ def test_table_matches_the_wrapper(emulated):
     table = (ctypes.c_int * 2)()
     emulated.line_search_table(table)
     assert tuple(table) == (k2.INPUTS, k2.OUTPUTS)
+    emulated.line_search_tags.restype = ctypes.c_char_p
+    assert tuple(emulated.line_search_tags().decode().split()) == k2.INSTANTIATIONS
 
 
 @pytest.mark.parametrize("priced", [False, True], ids=["J_given", "J_priced"])
@@ -182,6 +205,9 @@ def test_table_matches_the_wrapper(emulated):
         ("fixture", 9, 20, 12),     # shared leaves, N = 20
         ("humanoid", 7, 6, 12),     # two feet: nu 6, nc 12
         ("humanoid", 5, 10, 8),
+        ("convex", 11, 10, 8),      # the Euler SRB, midpoint rule: every leaf per scenario
+        ("convex_fixture", 5, 30, 12),  # the Euler SRB, forward Euler: leaves shared, N = 30
+        ("falling_cat", 9, 8, 12),  # the attitude model: nu 3, nc 6, per-knot w, Qdf
     ],
 )
 def test_emulated_kernel_matches_plain(emulated, dtype, name, batch, horizon, n_alphas, priced):
@@ -235,6 +261,65 @@ def test_emulated_kernel_at_a_warp_of_alphas(emulated):
     _hold(emulated, spec, prob, kw, "K = 32")
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_emulated_kernel_on_a_runaway_attitude_start(emulated, dtype):
+    """The attitude model with a first "alpha" so large that every rollout
+    runs away (the torque through the gyroscopic term and the quaternion's
+    rate overflows to Inf / NaN), a scenario that accepts nothing (1) and
+    done scenarios (2, 5): the select stays NaN-safe, and nothing is taken
+    where done or not accepted."""
+    spec, prob, kw = examples.line_search_case("falling_cat", 13, dtype, "cpu", 8, 12)
+    t = lambda a: torch.as_tensor(a, dtype=dtype)
+    kw["alphas"] = torch.cat([t([1e30 if dtype == torch.float32 else 1e160]), kw["alphas"][:-1]])
+    kw["J"] = kw["J"].clone()
+    kw["J"][1] = -1e3
+    kw["done"][[2, 5]] = True
+    for how, kw_run in _both_ways(kw):
+        if how == "J_priced":
+            kw_run = {**kw_run, "J": None}
+        got, want, _ = _hold(emulated, spec, prob, kw_run, f"runaway attitude start {how}")
+        assert not bool(torch.isfinite(want[6][0]).any()), "the overflowing alpha stays finite"
+        assert bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+        for b in (2, 5) if how == "J_priced" else (1, 2, 5):
+            assert torch.equal(got[0][..., b], kw["xs"][..., b])
+            assert torch.equal(got[1][..., b], kw["us"][..., b])
+            assert torch.equal(got[3][b], got[2][b])
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("sms", [SMS, 1], ids=["132_SMs", "1_SM"])
+@pytest.mark.parametrize("name,batch,horizon,n_alphas",
+                         [("convex", 37, 6, 8), ("convex_fixture", 21, 30, 12),
+                          ("falling_cat", 21, 8, 12)], ids=["convex", "convex_fixture",
+                                                            "falling_cat"])
+def test_emulated_kernel_with_a_ragged_last_block_of_each_model(emulated, name, batch, horizon,
+                                                              n_alphas, sms, dtype):
+    """The Euler SRB and the attitude model over blocks whose last is
+    ragged: planned for an H100 (two lanes an alpha, 8 or 4 scenarios a
+    block) and for one SM (one lane an alpha, 16 or 32 a block)."""
+    spec, prob, kw = examples.line_search_case(name, batch, dtype, "cpu", horizon, n_alphas)
+    P, S, _ = _plan_for(emulated, spec, prob, kw, sms)
+    assert P == (2 if sms == SMS else 1) and batch % S != 0 and batch > S
+    for how, kw_run in _both_ways(kw):
+        _hold(emulated, spec, prob, kw_run, f"{name} B={batch} {how}", sms=sms)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("name,horizon", [("convex_fixture", 30), ("falling_cat", 8)])
+def test_emulated_kernel_with_shared_leaves_of_each_model(emulated, name, horizon, dtype):
+    """The convex fixture's and the falling_cat fleet's leaves that every
+    scenario shares (references, weights, Cu, cb and the model's
+    parameters: batch extent 1, staged once a block) over several blocks,
+    B = 40."""
+    spec, prob, kw = examples.line_search_case(name, 40, dtype, "cpu", horizon, 12)
+    table, _, _ = k2.check_inputs(spec, prob, **kw)
+    # x_ref ... cb, then the model's parameters and h (the multipliers are per scenario)
+    shared = [ld for i, (t, ld) in enumerate(table[:20]) if t is not None and 4 <= i != 12]
+    assert len(shared) > 8 and all(ld == 1 for ld in shared), [ld for _, ld in table]
+    for how, kw_run in _both_ways(kw):
+        _hold(emulated, spec, prob, kw_run, f"{name} B=40 {how}")
+
+
 def _both_ways(kw):
     """The inputs with J given, then with J None (priced by the kernel)."""
     return (("J_given", kw), ("J_priced", {**kw, "J": None}))
@@ -243,7 +328,7 @@ def _both_ways(kw):
 def _plan_for(lib, spec, prob, kw, sms):
     """The plan the kernel takes for these inputs (`_plan`)."""
     table, extras, dims = k2.check_inputs(spec, prob, **kw)
-    outputs, scratch = k2.new_outputs(*dims[:4], kw["xs"], True)
+    outputs, scratch = k2.new_outputs(dims, kw["xs"], True)
     tables = k2.c_tables(table, (*extras, scratch), outputs)
     return _plan(lib, kw["xs"].dtype == torch.float64, tables, dims, sms)
 
@@ -286,23 +371,33 @@ def test_emulated_kernel_with_leaves_of_batch_extent_one(emulated, dtype):
 
 
 @pytest.mark.parametrize(
-    "dtype,batch,horizon,n_alphas,sms,in_shared",
+    "name,dtype,batch,horizon,n_alphas,sms,in_shared",
     [
-        (torch.float64, 8, 20, 32, SMS, False),  # 4 scenarios x 32 lanes: 525 KB of trajectories
-        (torch.float32, 13, 10, 12, 1, False),   # 16 scenarios x 16 lanes: 269 KB
-        (torch.float32, 13, 10, 12, SMS, True),  # 4 scenarios x 16 lanes: 67 KB
-        (torch.float64, 3, 10, 8, SMS, True),    # 4 scenarios x 8 lanes: 67 KB
-        (torch.float32, 1, 6, 12, SMS, True),    # the hardware tick's shape
+        ("standing", torch.float64, 8, 20, 32, SMS, False),  # 4 scenarios x 32 lanes: 525 KB
+        ("standing", torch.float32, 13, 10, 12, 1, False),   # 16 scenarios x 16 lanes: 269 KB
+        ("standing", torch.float32, 13, 10, 12, SMS, True),  # 4 scenarios x 16 lanes: 67 KB
+        ("standing", torch.float64, 3, 10, 8, SMS, True),    # 4 scenarios x 8 lanes: 67 KB
+        ("standing", torch.float32, 1, 6, 12, SMS, True),    # the hardware tick's shape
+        ("convex", torch.float64, 3, 10, 8, SMS, True),      # 4 scenarios x 8 lanes: 64 KB
+        ("convex", torch.float32, 13, 10, 12, 1, False),     # 8 scenarios x 16 lanes
+        ("convex_fixture", torch.float64, 21, 30, 12, SMS, False),  # 4 x 16 lanes: 375 KB
+        ("convex_fixture", torch.float32, 1, 30, 12, SMS, True),  # the fixture's one problem
+        ("falling_cat", torch.float32, 5, 40, 12, 1, True),  # 8 x 16 lanes: 208 KB
+        ("falling_cat", torch.float64, 5, 40, 12, 1, False),  # the same: 417 KB
     ],
     ids=["f64-N20-K32-B8", "f32-N10-K12-B13-1SM", "f32-N10-K12-B13", "f64-N10-K8-B3",
-         "f32-N6-K12-B1"],
+         "f32-N6-K12-B1", "convex-f64-N10-K8-B3", "convex-f32-N10-K12-B13-1SM",
+         "convex_fixture-f64-N30-K12-B21", "convex_fixture-f32-N30-K12-B1",
+         "falling_cat-f32-N40-K12-B5-1SM", "falling_cat-f64-N40-K12-B5-1SM"],
 )
-def test_emulated_kernel_keeps_trajectories_where_they_fit(emulated, dtype, batch, horizon,
+def test_emulated_kernel_keeps_trajectories_where_they_fit(emulated, name, dtype, batch, horizon,
                                                           n_alphas, sms, in_shared):
     """Each alpha's rollout goes to a slab in shared memory where it fits
     beside the staging and every block has an SM of its own, else to the
-    device-memory scratch; both ways the selected one is written."""
-    spec, prob, kw = examples.line_search_case("standing", batch, dtype, "cpu", horizon, n_alphas)
+    device-memory scratch; both ways the selected one is written. The
+    quaternion SRB's fleet problem, the Euler SRB's (convex fleet, convex
+    fixture) and the attitude model's."""
+    spec, prob, kw = examples.line_search_case(name, batch, dtype, "cpu", horizon, n_alphas)
     for how, kw_run in _both_ways(kw):
         _hold(emulated, spec, prob, kw_run, f"B={batch} K={n_alphas} {how}", in_shared, sms)
 

@@ -1,8 +1,10 @@
-"""Time the hardware loop's tick and the Go1 fleet's step and tick on one
-card, so that two checkouts of this repository can be compared in turns in
-one call on one card.
+"""Time the hardware loop's tick, the Go1 fleet's step and tick, the convex
+fleet's step and the falling_cat fleet's solve on one card, so that two
+checkouts of this repository can be compared in turns in one call on one
+card.
 
     python3 tick_clock.py     # from the root of a checkout: times that checkout's port
+    python3 tick_clock.py convex falling_cat   # only the parts named (PARTS)
 
 Prints the card's name and power limit, then one JSON object:
 - the hardware loop's two-tier tick as the loop replays it (a CUDA graph, in
@@ -19,9 +21,16 @@ Prints the card's name and power limit, then one JSON object:
 - K2, the line search, alone at the fleet step's shape (f32, N=10, 8
   alphas, B=4096): the host's time in one call of its wrapper (mean of 100
   calls, no synchronise) and the kernel's by events around a replayed graph
-  of 50 launches.
+  of 50 launches;
+- the Euler convex fleet controller's step (N=10, 1 AL x 5 iLQR, 8 alphas,
+  f32, B=4096): p50 / min / max ms of 10 steps after 2 warm-ups, the device
+  operations of one traced step, and the fleet's mean Σfz;
+- the falling_cat fleet's solve (`examples.falling_cat_fleet`, B=4096, f32,
+  N=40, 3 AL x 25 iLQR, 12 alphas): p50 / min / max ms of 3 solves after 1
+  warm-up, and the device operations of one traced solve cut to 1 x 5.
 It uses only functions the port has had since its hardware loop was graphed,
-and `chip_smoke.py`'s helpers of the same checkout.
+and `chip_smoke.py`'s helpers of the same checkout (the last two parts use
+none of them).
 """
 
 from __future__ import annotations
@@ -141,10 +150,51 @@ def line_search(device):
             "kernel_ms": cs._graph_time(launch, reps=50) * 1e3}
 
 
-def main() -> int:
+def convex_step(device):
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.control import convex_mpc
+    from quaternion_mpc_tpu_torch.solver.problem import SolverOptions
+
+    opts = SolverOptions(al_iterations=1, ilqr_iterations=5, max_linesearch=8)
+    ctrl = convex_mpc.make_fleet_controller(10, opts)
+    inputs = examples.standing_batch(FLEET_B, 10, torch.float32, device, controller="convex")
+    times = _timed(lambda: ctrl(*inputs), runs=10, warmup=2)
+    grf, _ = ctrl(*inputs)
+    return {"step_ms_p50_min_max": _ms(times), **_trace(lambda: ctrl(*inputs)),
+            "mean_sum_fz_N": grf[..., 2].sum(-1).mean().item()}
+
+
+def falling_cat_solve(device):
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.solver import al_ilqr
+
+    spec, prob, opts = examples.falling_cat_fleet(FLEET_B, torch.float32, device, seed=0)
+    solver = al_ilqr.make_solver(spec, opts)
+    times = _timed(lambda: solver(prob), runs=3, warmup=1)
+    short = al_ilqr.make_solver(spec, opts._replace(al_iterations=1, ilqr_iterations=5))
+    return {"solve_ms_p50_min_max": _ms(times),
+            "solve_1x5": _trace(lambda: short(prob))}
+
+
+PARTS = {
+    "hardware_tick_h6_1x3": lambda device: hardware_tick(device, 6, 1, 3),
+    "hardware_tick_h8_2x3": lambda device: hardware_tick(device, 8, 2, 3),
+    "fleet_step_2x5_B4096": fleet_step,
+    "walking_tick_1x3_B4096": walking_tick,
+    "line_search_f32_N10_K8_B4096": line_search,
+    "convex_step_1x5_B4096": convex_step,
+    "falling_cat_solve_3x25_B4096": falling_cat_solve,
+}
+
+
+def main(argv) -> int:
     if not torch.cuda.is_available():
         print("tick_clock: no CUDA device", file=sys.stderr)
         return 1
+    parts = [name for name in PARTS if not argv or any(name.startswith(a) for a in argv)]
+    if argv and not parts:
+        print(f"tick_clock: parts are {', '.join(PARTS)}", file=sys.stderr)
+        return 2
     import quaternion_mpc_tpu_torch  # noqa: F401  (sets the full-f32 matmul flags)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -152,17 +202,11 @@ def main() -> int:
     print(smi)
     device = torch.device("cuda:0")
     t0 = time.perf_counter()
-    out = {
-        "hardware_tick_h6_1x3": hardware_tick(device, 6, 1, 3),
-        "hardware_tick_h8_2x3": hardware_tick(device, 8, 2, 3),
-        "fleet_step_2x5_B4096": fleet_step(device),
-        "walking_tick_1x3_B4096": walking_tick(device),
-        "line_search_f32_N10_K8_B4096": line_search(device),
-    }
+    out = {name: PARTS[name](device) for name in parts}
     out["wall_s"] = time.perf_counter() - t0
     print(json.dumps(out))
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
