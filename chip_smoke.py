@@ -4,6 +4,7 @@
     python3 chip_smoke.py --kernels-only   # phases 1-3 (K2 too), K7 on seeded states, the kernels' timings; no result line
     python3 chip_smoke.py --kernels-only --k7-baseline OLD.cu   # and K7 timed beside another source of it
     python3 chip_smoke.py --kernels-only --k2-baseline OLD.cu   # and K2 held bit for bit and timed beside another
+    python3 chip_smoke.py --kernels-only --k8-baseline OLD.cu   # and K8 the same
     python3 chip_smoke.py --hardware-only  # phases 1-2, 14 and 15: the hardware loop, the fleet over ranks, the CLI; no result line
 
 Phases, each printing its results (any failure raises, so the script exits
@@ -48,7 +49,7 @@ non-zero before the last line):
    (counted and printed; none in any other model's checks);
    K8 (`expansions`, the quaternion SRB's knot expansions of a backward
    pass) against `knot_expansions_ref`, every element of its eight outputs,
-   at the fleet step's shape (N=10, B in {1, 7, 4096}), the hardware
+   at the fleet step's shape (N=10, B in {1, 7, 31, 33, 130, 4096}), the hardware
    loop's (N in {6, 8}, B=1), the golden fixture's (N=20, B=256, leaves
    shared along B), the humanoid's (two feet, N=20, B=33) and the fleet's
    with per-knot w and cb and a terminal weight (B=4096), multipliers drawn
@@ -251,8 +252,11 @@ f32 and f64; and the clocks of each phase of a substep from a
 its build options and, with --k2-baseline, another source of it with the
 same C interface (the previous design), held bit for bit against the shipped
 build and timed in turns; its launch plans swept; the wrapper's host time by
-part; and the clocks of each pass from a -DK2_PHASE_CLOCKS build. It prints
-no result line.
+part; and the clocks of each pass from a -DK2_PHASE_CLOCKS build. For K8
+also, with --k8-baseline (phase_k8_designs), another source of it (the
+previous design, with the batch-extent interface), held bit for bit against
+the shipped build at every checked shape and timed in turns, alone and with
+K1 after it. It prints no result line.
 """
 
 from __future__ import annotations
@@ -803,11 +807,11 @@ def phase_line_search_timing(device):
 
 
 # K8's checked shapes: (problem, N, batches, leaves). The fleet step's (N=10:
-# one scenario, a ragged block, many blocks), the hardware loop's ticks (N=6
+# one scenario, ragged tiles of 32, many tiles), the hardware loop's ticks (N=6
 # and 8, B=1), the golden fixture's (N=20, leaves shared along B), the
 # humanoid's (two feet) and the fleet's with per-knot leaves (w and cb per
 # knot, a terminal weight Qdf, one weight row for the fleet).
-K8_CHECKED = (("standing", HORIZON, (1, 7, 4096), "per scenario"),
+K8_CHECKED = (("standing", HORIZON, (1, 7, 31, 33, 130, 4096), "per scenario"),
               ("standing", 6, (1,), "per scenario"), ("standing", 8, (1,), "per scenario"),
               ("fixture", 20, (256,), "shared"), ("humanoid", 20, (33,), "per scenario"),
               ("standing", HORIZON, (4096,), "per knot"))
@@ -1114,6 +1118,107 @@ def phase_k2_designs(device, baseline=None):
                   f"{'J given' if given else 'J priced'} (thread 0 of the middle block; two stamps "
                   f"back to back {stamp}): {int(sum(split.values()))} in all: "
                   + ", ".join(f"{p} {int(c)}" for p, c in split.items()))
+
+
+# --kernels-only --k8-baseline: another source of K8, the previous design,
+# whose C interface takes each input's batch extent and reads contiguous
+# inputs, held bit for bit against the shipped build at K8_CHECKED's shapes,
+# f32 and f64, and timed in turns with it at K8_TIMED's shapes, alone and
+# followed by K1 on its outputs.
+
+
+def _k8_launcher(lib, args, extents=False):
+    """fn() that launches ``lib``'s K8 once on ``args`` (`_k8_inputs`) into
+    outputs made once and returns them; the tables are made once too, so
+    that fn() is the kernel's launch alone. ``extents``: ``lib`` is a source
+    whose C interface takes each input's batch extent (the previous design),
+    fed contiguous copies."""
+    from quaternion_mpc_tpu_torch.kernels import expansions as k8
+
+    table, dims = k8.check_inputs(*args)
+    outputs = k8.new_outputs(dims, args[2])
+    if extents:
+        table = [(t.contiguous(), extent) for t, extent in table]
+    ins, strides, outs = k8.c_tables(table, outputs)
+    if extents:
+        strides = (ctypes.c_longlong * k8.INPUTS)(*[extent for _, extent in table])
+    entry = getattr(lib, k8._ENTRY[args[2].dtype])
+
+    def fn():
+        err = entry(ins, strides, outs, *dims, torch.cuda.current_stream().cuda_stream)
+        _check(err == 0, f"K8 launch failed with CUDA error {err}")
+        return outputs
+
+    fn.table = table  # the copies live as long as fn
+    return fn
+
+
+def phase_k8_designs(device, baseline):
+    """--kernels-only --k8-baseline: that source built (K8's FLAGS, its
+    batch-extent interface), held bit for bit against the shipped build
+    (every element of the eight outputs, f32 and f64, at every K8_CHECKED
+    shape, B=1 included) and timed in turns with it (the baseline, the
+    shipped build, then back) by events around a replayed graph of 50
+    launches of the kernel alone at K8_TIMED's shapes, then of 20 launches
+    each followed by K1 on its outputs at the first and the last. The count
+    of differing elements is printed and must be 0."""
+    from quaternion_mpc_tpu_torch.kernels import build as kbuild
+    from quaternion_mpc_tpu_torch.kernels import expansions as k8
+
+    t0 = time.perf_counter()
+    path = kbuild.build(pathlib.Path(baseline).resolve(), k8.FLAGS)
+    print(f"[K8] the baseline built in {time.perf_counter() - t0:.1f} s")
+    for k in kbuild.ptxas_report(path):
+        print(f"[K8] ptxas baseline {k['name'][-24:]}: {k['registers']} registers, "
+              f"{k['stack']} bytes stack, spill {k['stores']} / {k['loads']} bytes")
+    libs = {"shipped": k8._lib(), "baseline": k8.bind(path)}
+    order = ["baseline", "shipped"]
+
+    n, worst, off, launches = 0, 0.0, 0, 0  # elements, largest, launches off, launches
+    for dtype in (torch.float32, torch.float64):
+        for name, horizon, batches, leaves in K8_CHECKED:
+            for batch in batches:
+                args = _k8_inputs(name, horizon, batch, dtype, device, leaves)
+                want = _k8_launcher(libs["shipped"], args)()
+                got = _k8_launcher(libs["baseline"], args, extents=True)()
+                n_one, worst_one = _k2_differ(got, want)
+                n, worst = n + n_one, max(worst, worst_one)
+                off, launches = off + (n_one > 0), launches + 1
+    torch.cuda.synchronize()
+    print(f"[K8] bits: baseline against the shipped build over {launches} launches (every "
+          f"output; K8_CHECKED's shapes, B=1 included, f32 and f64): {n} elements differ in "
+          f"{off} launches, largest |difference| {worst:.3e}")
+    _check(n == 0, f"K8: the baseline's outputs differ from the shipped build's in {n} elements")
+
+    for dtype, horizon, batch in K8_TIMED:
+        args = _k8_inputs("standing", horizon, batch, dtype, device)
+        times = {lib_name: [] for lib_name in order}
+        for lib_name in order + order[::-1]:
+            fn = _k8_launcher(libs[lib_name], args, extents=lib_name == "baseline")
+            times[lib_name].append(_graph_time(fn, reps=50) * 1e3)
+        bound_ms, _ = _bound(k8.work(*args), dtype)
+        print(f"[K8] designs {_k8_shape(dtype, horizon, batch)}, the kernel alone, in turns "
+              f"forward / backward (bound {bound_ms:.5f} ms): " + "; ".join(
+                  f"{lib_name} {times[lib_name][0]:.4f} / {times[lib_name][1]:.4f} ms "
+                  f"({100 * bound_ms / statistics.mean(times[lib_name]):.2f}% of the bound)"
+                  for lib_name in order))
+
+    # each source followed by K1 on its outputs, as a backward pass runs them:
+    # what K1 then reads of them from L2 depends on how K8 stored them
+    from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
+
+    for dtype, horizon, batch in K8_TIMED[:1] + K8_TIMED[-1:]:
+        args = _k8_inputs("standing", horizon, batch, dtype, device)
+        reg = torch.zeros(batch, dtype=dtype, device=device)
+        times = {lib_name: [] for lib_name in order}
+        for lib_name in order + order[::-1]:
+            fn = _k8_launcher(libs[lib_name], args, extents=lib_name == "baseline")
+            times[lib_name].append(_graph_time(lambda: rs.riccati_sweep(*fn(), reg), reps=20)
+                                   * 1e3)
+        print(f"[K8] designs {_k8_shape(dtype, horizon, batch)}, K8 then K1 on its outputs, in "
+              f"turns forward / backward: " + "; ".join(
+                  f"{lib_name} {times[lib_name][0]:.4f} / {times[lib_name][1]:.4f} ms"
+                  for lib_name in order))
 
 
 def phase_main_path(device):
@@ -4311,7 +4416,7 @@ def main(argv) -> int:
     hardware_only = argv == ["--hardware-only"]
     baselines = dict(zip(argv[1::2], argv[2::2]))
     kernels_only = (argv[:1] == ["--kernels-only"] and len(argv) % 2 == 1
-                    and set(baselines) <= {"--k7-baseline", "--k2-baseline"}
+                    and set(baselines) <= {"--k7-baseline", "--k2-baseline", "--k8-baseline"}
                     and len(baselines) == len(argv) // 2)
     workers = {**WORKERS, **ACT_WORKERS, **HW_WORKERS, "hardware-threaded": phase_hw_threaded,
                "hardware-peer-profile": _worker_hw_peer_profile,
@@ -4319,6 +4424,7 @@ def main(argv) -> int:
     worker = argv[1] if len(argv) == 2 and argv[0] == "--worker" and argv[1] in workers else None
     if argv and not (kernels_only or worker or hardware_only):
         print("usage: chip_smoke.py [--kernels-only [--k7-baseline SOURCE] [--k2-baseline SOURCE] "
+              "[--k8-baseline SOURCE] "
               "| --hardware-only | "
               "--worker "
               f"{{{','.join(workers)}}}]", file=sys.stderr)
@@ -4384,6 +4490,8 @@ def main(argv) -> int:
         phase_line_search_timing(device)
         phase_expansions_timing(device)
         phase_k2_designs(device, baselines.get("--k2-baseline"))
+        if "--k8-baseline" in baselines:
+            phase_k8_designs(device, baselines["--k8-baseline"])
         print(f"[done] kernels only, no result line; wall {time.perf_counter() - t_start:.1f} s")
         return 0
     ctrl, inputs, launches = phase_main_path(device)           # 4
@@ -4603,9 +4711,11 @@ def main(argv) -> int:
         "route": "cuda",
         "source": "quaternion_mpc_tpu_torch/csrc/expansions.cu",
         "replaces": "quaternion_mpc_tpu/solver/fleet.py:642",
-        "design": ("a thread per (knot, scenario), the last knot index the terminal term; "
-                   "batch-last; every element of the dense slabs written from registers in the "
-                   "blocks' form of SrbEdjBlocks, luu a row at a time; -fmad=false"),
+        "design": ("a block a knot and 32 scenarios, its warps the knot's pieces (As, Bs, the "
+                   "state cost, the AL terms, luu a few rows a warp after a barrier), the "
+                   "terminal knot a tile a warp; shared leaves staged in shared memory; every "
+                   "element of the dense slabs written from registers in the blocks' form of "
+                   "SrbEdjBlocks; batch-first parameters read in place; -fmad=false"),
         # every counted path of this process, each driven with the counts set
         # to 0 just before and read just after: al x ilqr a solve or tick of
         # the quaternion SRB, 0 on the convex and falling_cat paths

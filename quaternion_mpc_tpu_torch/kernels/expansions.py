@@ -4,7 +4,7 @@ hand-written CUDA kernel, one launch an iLQR iteration.
 Replaces the region XLA fused for the JAX package at
 `quaternion_mpc_tpu/solver/fleet.py:642` (`knot_expansions`: a `jax.vmap`
 over the knots of the structured error-state Jacobian, models/srb.py:350-473,
-and the cost expansion :471) and its `terminal_expansion` (:481). Eager
+and the cost expansion :471) and its `terminal_expansion` (:484). Eager
 PyTorch runs it (the plain version: `solver.fleet.knot_expansions` and
 `terminal_expansion`) as ~360 launches an iteration; the kernel writes the
 same eight slabs, the inputs of K1 (`kernels.riccati_sweep`) and of K4's
@@ -15,15 +15,23 @@ at 12 inputs, the dense slabs with their zeros, and reads ~80; the
 operations, most of them ρ·Cuᵀ·diag(active)·Cu, take less time at the card's
 peak.
 
-Design (csrc/expansions.cu): one thread per (knot, scenario), the last knot
-index the terminal term; batch-last, so that neighbouring threads read and
-write neighbouring addresses; everything in registers in the block form of
-`models.srb.SrbEdjBlocks`, luu a row at a time. Built with -fmad=false
-(`FLAGS`); every value by the operations PyTorch does for the plain version
-on the card, in its order (long sums over four accumulators, the moment's
-cross products fused), so that there at B > 1 the outputs equal the plain
-version's bit for bit: the closed loops then take the steps they took
-before K8 (their f32 fate is set by rounding: PERF.md).
+Design (csrc/expansions.cu): a block takes one knot and 32 scenarios, a lane
+each; its warps are the knot's pieces (the dynamics to As, the dynamics to
+Bs, the state cost, and the AL rows over the tile's Cu in shared memory),
+then, after a barrier that hands on λ̄ and the active rows, luu's rows and
+lu's Cuᵀλ̄ dealt over every warp; blocks past the stage knots take the
+terminal term, a tile of scenarios a warp. Batch-last outputs, so that a
+warp's store is one row of neighbouring scenarios; the leaves every
+scenario shares staged in shared memory once a block; everything in
+registers in the block form of `models.srb.SrbEdjBlocks`. The inputs are
+read through a row and a batch stride each (`c_tables`), so that the
+batch-first model parameters (`models.srb.params_to_fleet`'s `movedim`) are
+read in place, not copied. Built with -fmad=false (`FLAGS`); every value by
+the operations PyTorch does for the plain version on the card, in its order
+(long sums over four accumulators, the moment's cross products fused), so
+that there at B > 1 the outputs equal the plain version's bit for bit: the
+closed loops then take the steps they took before K8 (their f32 fate is set
+by rounding: PERF.md).
 
 Which spec runs it is a tag on the model (`FleetModelSpec.expansions`:
 "quat_srb", set by the quaternion-MPC fleet spec and carried from the model
@@ -78,9 +86,14 @@ def build():
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The kernel built and loaded, its entries' argument types set and its
-    tables' sizes checked against the wrapper's."""
-    path = build()
+    """The kernel built and loaded (`bind`)."""
+    return bind(build())
+
+
+def bind(path) -> ctypes.CDLL:
+    """A build of the kernel (this source with other flags, or another source
+    with the same C interface) loaded, its entries' argument types set and
+    its tables' sizes checked against the wrapper's."""
     lib = ctypes.CDLL(str(path))
     for name in _ENTRY.values():
         fn = getattr(lib, name)
@@ -94,10 +107,47 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def _strides(t):
+    """(row stride, batch stride) of ``t`` (leading axes, then a batch axis)
+    as the kernel reads it: element (row i of the leading axes flattened,
+    scenario b) at i·row stride + b·batch stride; the batch stride 0 where the
+    batch axis is 1. None where the leading axes do not step through memory
+    evenly (the kernel then reads a contiguous copy). An empty ``t`` (no
+    inequality rows) is never read."""
+    if t.numel() == 0:
+        return 1, 0
+    extent, lead = t.shape[-1], list(zip(t.shape[:-1], t.stride()[:-1]))
+    row, inner = None, 1
+    for size, stride in reversed(lead):
+        if size == 1:
+            continue
+        if row is None:
+            row = stride
+        if stride <= 0 or stride != row * inner:
+            return None
+        inner *= size
+    return (1 if row is None else row), (t.stride(-1) if extent > 1 else 0)
+
+
+def _view(t, B, name, like):
+    """`line_search._layout` without its copy: ``t`` of the right shape as
+    the kernel reads it, in place wherever `_strides` can describe it (a
+    batch axis of B broadcast with stride 0 is cut to 1), else contiguous;
+    with its batch extent."""
+    if t.dtype != like[0] or t.device != like[1]:
+        raise ValueError(f"{name} is {t.dtype} on {t.device}; xs is {like[0]} on {like[1]}")
+    if t.shape[-1] == B and B > 1 and t.stride(-1) == 0:
+        t = t[..., :1]
+    if _strides(t) is None:
+        t = t.contiguous()
+    return t, t.shape[-1]
+
+
 def check_inputs(spec, prob, xs, us, lam, rho):
     """Raise ValueError on a problem the kernel does not take; returns the
     kernel's input table (INPUTS (tensor, batch extent) pairs in the order
-    of csrc/expansions.cu enum Input) and (N, B, n_feet, nc, flags)."""
+    of csrc/expansions.cu enum Input, each tensor read in place where its
+    strides allow: `c_tables`) and (N, B, n_feet, nc, flags)."""
     if spec.expansions not in MODELS:
         raise ValueError(f"K8 runs the specs tagged {MODELS}, not {spec.expansions!r}")
     if (spec.nx, spec.ne, spec.quat_idx, spec.integrator) != (NX, NE, QI, "midpoint"):
@@ -142,7 +192,7 @@ def check_inputs(spec, prob, xs, us, lam, rho):
         (prob.h, S, None, "h"),
         (rho, S, None, "rho"),
     ]
-    table = _k2.input_table(operands, B, (xs.dtype, xs.device))
+    table = _k2.input_table(operands, B, (xs.dtype, xs.device), _view)
     flags = (_W_PER_KNOT if w_per_knot else 0) | (_CB_PER_KNOT if cb_per_knot else 0)
     return table, (N, B, n_feet, nc, flags)
 
@@ -171,6 +221,10 @@ def new_outputs(dims, like):
 # D_qq 176, D_qq·G 84, D_qω 120, A_phi and A_pw 126, then Bs 69 a column.
 STATE_FLOPS = 148
 _DYNAMICS_FLOPS = 666
+# Operations that the Bs piece of a stage knot computes again beside the As
+# piece's (the inverse inertia 41, ½h and ½h², q_m 32, ½G(q_m) 12): on the
+# card, not in `flops_per_knot` or `work`, which count the function's.
+RECOMPUTED_FLOPS = 87
 
 
 def flops_per_knot(n_feet: int, nc: int) -> int:
@@ -206,15 +260,15 @@ def work(spec, prob, xs, us, lam, rho) -> dict:
 
 
 _IN_TABLE = ctypes.c_void_p * INPUTS
-_LD_TABLE = ctypes.c_longlong * INPUTS
+_STRIDE_TABLE = ctypes.c_longlong * (2 * INPUTS)
 _OUT_TABLE = ctypes.c_void_p * OUTPUTS
 
 
 def c_tables(table, outputs):
-    """The C interface's three tables: the input pointers, their batch
-    extents and the output pointers."""
-    return (_IN_TABLE(*[None if t is None else t.data_ptr() for t, _ in table]),
-            _LD_TABLE(*[ld for _, ld in table]),
+    """The C interface's three tables: the input pointers, each input's
+    (row stride, batch stride) (`_strides`) and the output pointers."""
+    return (_IN_TABLE(*[t.data_ptr() for t, _ in table]),
+            _STRIDE_TABLE(*[s for t, _ in table for s in _strides(t)]),
             _OUT_TABLE(*[t.data_ptr() for t in outputs]))
 
 

@@ -196,36 +196,38 @@ def work(spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas) -> dic
     }
 
 
-def _operand(t, lead, B, name, like):
+def _operand(t, lead, B, name, like, layout=None):
     """``t`` as the kernel reads it: contiguous, its batch axis B or 1 (a
     value every scenario shares; an axis of B broadcast with stride 0 is cut
     to 1), with the batch extent. Raises on another shape, type or device.
-    ``like``: (dtype, device) every operand shares."""
+    ``like``: (dtype, device) every operand shares; ``layout``: how a
+    tensor of the right shape is laid out for the kernel (`_layout`)."""
     shape = t.shape if isinstance(t, torch.Tensor) else None
     if shape is None or len(shape) != len(lead) + 1 or shape[-1] not in (1, B) \
             or shape[:-1] != lead:
         shape = tuple(shape) if shape is not None else type(t).__name__
         raise ValueError(f"{name} must have shape {tuple(lead)} + (B|1,) with B = {B}, got {shape}")
-    return _layout(t, B, name, like)
+    return (layout or _layout)(t, B, name, like)
 
 
-def _exact(t, shape, name, like):
+def _exact(t, shape, name, like, layout=None):
     """An operand with its batch axis always B: ``shape`` exactly."""
     if not isinstance(t, torch.Tensor) or t.shape != shape:
         got = tuple(t.shape) if isinstance(t, torch.Tensor) else type(t).__name__
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {got}")
-    return _layout(t, shape[-1], name, like)
+    return (layout or _layout)(t, shape[-1], name, like)
 
 
-def _scalar(t, B, name, like):
+def _scalar(t, B, name, like, layout=None):
     """A value a scenario (h, mass, ρ, ...): one shared value of any shape, or
     B values."""
+    layout = layout or _layout
     if isinstance(t, torch.Tensor):
         n = t.numel()
         if n == 1:
-            return _layout(t if t.dim() == 1 else t.reshape(1), B, name, like)
+            return layout(t if t.dim() == 1 else t.reshape(1), B, name, like)
         if n == B and t.shape[-1] == B:
-            return _layout(t if t.dim() == 1 else t.reshape(B), B, name, like)
+            return layout(t if t.dim() == 1 else t.reshape(B), B, name, like)
     shape = tuple(t.shape) if isinstance(t, torch.Tensor) else type(t).__name__
     raise ValueError(f"{name} must be a tensor of one value or of B = {B}, got {shape}")
 
@@ -263,23 +265,24 @@ def param_operands(p, fields, n_feet):
     return operands
 
 
-def input_table(operands, B, like):
+def input_table(operands, B, like, layout=None):
     """A kernel's input table from its operands, each (tensor or None, how it
     is taken: _EXACT, _LEAD or _SCALAR, or None for an operand absent from
     this launch; its shape; its name): (tensor as the kernel reads it, batch
     extent) pairs, (None, 1) for an absent operand. Raises ValueError on an
     operand of another shape, type or device than ``like`` = (dtype,
-    device)."""
+    device). ``layout`` lays a tensor out for the kernel (default `_layout`:
+    contiguous)."""
     table = []
     for t, kind, shape, name in operands:
         if kind is None:
             table.append((None, 1))
         elif kind == _EXACT:
-            table.append(_exact(t, shape, name, like))
+            table.append(_exact(t, shape, name, like, layout))
         elif kind == _LEAD:
-            table.append(_operand(t, shape, B, name, like))
+            table.append(_operand(t, shape, B, name, like, layout))
         else:
-            table.append(_scalar(t, B, name, like))
+            table.append(_scalar(t, B, name, like, layout))
     return table
 
 

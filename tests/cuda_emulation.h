@@ -57,8 +57,12 @@ static std::vector<Fiber> fibers;
 static std::function<void()> body;
 static Barrier of_block;
 static std::vector<Barrier> of_warp;
+static std::array<Barrier, 16> named;  // bar.sync id, count: parties set at first use
 static std::vector<std::array<double, 32>> exchange;  // one slot a lane
 static long progress;  // arrivals at barriers and finished fibers
+// Resume a block's warps last to first (a test's choice): a kernel whose
+// warps hand values to each other must then still order them by barriers.
+static bool warps_reversed = false;
 
 inline void wait(Barrier& barrier) {
   ++progress;
@@ -88,6 +92,13 @@ inline void resume(int thread) {
 }  // namespace emulation
 
 inline void __syncthreads() { emulation::wait(emulation::of_block); }
+// bar.sync id, threads: the first `threads` threads to arrive at barrier id
+// (the kernel names which, as on the card, by the warps that reach it).
+inline void __named_sync(int id, int threads) {
+  emulation::Barrier& barrier = emulation::named[id];
+  if (barrier.parties == 0) barrier.parties = threads;
+  emulation::wait(barrier);
+}
 inline void __syncwarp() { emulation::wait(emulation::of_warp[threadIdx.x >> 5]); }
 
 template <typename T>
@@ -136,6 +147,7 @@ int emulate_blocks(int blocks, int threads, Kernel kernel, Args... args) {
     std::memset(smem_raw, 0xff, sizeof(smem_raw));
     of_block = Barrier{threads};
     of_warp.assign(warps, Barrier{32});
+    named.fill(Barrier{});
     exchange.assign(warps, {});
     fibers.clear();
     fibers.resize(threads);
@@ -154,7 +166,8 @@ int emulate_blocks(int blocks, int threads, Kernel kernel, Args... args) {
     while (!all_done) {
       all_done = true;
       const long before_pass = progress;
-      for (int warp = 0; warp < warps; ++warp) {
+      for (int turn = 0; turn < warps; ++turn) {
+        const int warp = warps_reversed ? warps - 1 - turn : turn;
         long before_cycle;
         do {
           before_cycle = progress;

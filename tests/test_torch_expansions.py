@@ -344,3 +344,36 @@ def test_wrapper_checks_its_inputs():
     assert [ld for _, ld in table[2:5]] == [1, 3, 1]
     with pytest.raises(ValueError, match="runs on cpu or cuda"):
         k8.knot_expansions(spec, prob, xs.to("meta"), us, lam, rho)
+
+
+def test_input_table_reads_the_parameters_in_place():
+    """The batch-first model parameters (`params_to_fleet`'s movedim: the
+    fleet controller's feet and rotation) enter K8's input table as the
+    parameters' own storage, read through a row stride of 1 and a batch
+    stride of their row count, with no copy; batch-last leaves keep row
+    stride B and batch stride 1, a leaf broadcast along B is cut to one
+    column of batch stride 0, and a leaf whose leading axes do not step
+    evenly through memory is copied."""
+    spec, prob, xs, us, lam, rho = _case("standing", batch=5, horizon=4)
+    p = prob.params
+    table, _ = k8.check_inputs(spec, prob, xs, us, lam, rho)
+    inputs = dict(zip(("xs", "us", "x_ref", "u_ref", "Qd", "Qdf", "Rd", "w", "Cu", "cb", "lam",
+                       "foot_pos", "inertia", "mass", "com_offset", "com_mass",
+                       "rot_body_to_world", "h", "rho"), table))
+    for field, rows in (("foot_pos", 12), ("rot_body_to_world", 9)):
+        given = getattr(p, field)
+        assert not given.is_contiguous()
+        t, extent = inputs[field]
+        assert t.data_ptr() == given.data_ptr() and extent == 5, field
+        assert k8._strides(t) == (1, rows), field
+    assert k8._strides(inputs["xs"][0]) == (5, 1) and inputs["xs"][0].data_ptr() == xs.data_ptr()
+    t, extent = inputs["inertia"]  # broadcast along B with stride 0
+    assert extent == 1 and k8._strides(t) == (1, 0) and t.data_ptr() == p.inertia.data_ptr()
+    _, strides, _ = k8.c_tables(table, k8.new_outputs(k8.check_inputs(
+        spec, prob, xs, us, lam, rho)[1], xs))
+    assert list(strides)[2 * 11:2 * 11 + 2] == [1, 12] and list(strides)[:2] == [5, 1]
+    wide = torch.zeros((prob.x_ref.shape[0], 14, 5), dtype=prob.x_ref.dtype)
+    wide[:, :13] = prob.x_ref
+    table, _ = k8.check_inputs(spec, prob._replace(x_ref=wide[:, :13]), xs, us, lam, rho)
+    assert table[2][0].is_contiguous() and table[2][0].data_ptr() != wide.data_ptr()
+    assert torch.equal(table[2][0], prob.x_ref)

@@ -5,12 +5,17 @@ path), held against the plain version (`knot_expansions_ref`) on the same
 inputs.
 
 Cases: the Go1 fleet controller's problem (four feet, every leaf per
-scenario) at B = 1, 7, 33 and 130 (two blocks of a knot, the last ragged);
-one, two (the humanoid) and three feet; the golden standing fixture's
-leaves shared along B (batch extent 1); per-knot cb and w with a terminal
+scenario) at B = 1, 7, 31, 32, 33 and 130 (ragged tiles of 32 scenarios,
+several tiles a knot, the terminal knot's tiles a warp); one, two (the
+humanoid) and three feet; the golden standing fixture's leaves shared along
+B (batch extent 1) and a mix of shared and per-scenario leaves, with what a
+block stages in shared memory read back; per-knot cb and w with a terminal
 weight Qdf; multipliers drawn so that some rows are active and some not,
 and rows at an exact tie λ + ρc = 0 (active); a problem with no inequality
-rows. Every output element counts: the outputs start as NaN.
+rows; a block's warps resumed last to first, so that the sums after the
+barrier find λ̄ and the active rows only if the barrier orders them; the
+batch-first model parameters read in place through their strides. Every
+output element counts: the outputs start as NaN.
 
 f64 agrees to 1e-12 of each output's scale. f32 is held to the f32 plain
 version at 1e-5 of scale: the device code does PyTorch's operations in the
@@ -20,7 +25,8 @@ here with -ffp-contract=off, on the card with -fmad=false).
 
 The same device code on a number type that counts its operations gives
 `kernels.expansions.flops_per_knot` and `STATE_FLOPS`, the operations
-`work` counts for the bound. Needs a host C++17 compiler (g++); without one
+`work` counts for the bound, and apart from them `RECOMPUTED_FLOPS`, those
+the Bs piece computes again. Needs a host C++17 compiler (g++); without one
 the tests skip."""
 
 import ctypes
@@ -50,11 +56,16 @@ _HARNESS = r"""
 #include "cuda_emulation.h"
 
 #include <cmath>
+#include <cstring>
 
 // A number that counts the floating-point operations done on it: each add,
-// subtract, multiply and divide once (a negation, a comparison none). It
-// holds one double, so that a table of double pointers reads as one of it.
-static long long flops = 0;
+// subtract, multiply and divide once (a negation, a comparison none), those
+// that a piece computes again (K8_RECOMPUTE) apart. It holds one double, so
+// that a table of double pointers reads as one of it.
+static long long flops = 0, recomputed = 0;
+static bool recomputing = false;
+#define K8_RECOMPUTE(on) (recomputing = (on))
+#define COUNT(n) ((recomputing ? recomputed : flops) += (n))
 struct Counted {
   double v;
   Counted() = default;
@@ -66,14 +77,14 @@ inline Counted counted(double v) {
   c.v = v;
   return c;
 }
-inline Counted operator+(Counted a, Counted b) { ++flops; return counted(a.v + b.v); }
-inline Counted operator-(Counted a, Counted b) { ++flops; return counted(a.v - b.v); }
-inline Counted operator*(Counted a, Counted b) { ++flops; return counted(a.v * b.v); }
-inline Counted operator/(Counted a, Counted b) { ++flops; return counted(a.v / b.v); }
+inline Counted operator+(Counted a, Counted b) { COUNT(1); return counted(a.v + b.v); }
+inline Counted operator-(Counted a, Counted b) { COUNT(1); return counted(a.v - b.v); }
+inline Counted operator*(Counted a, Counted b) { COUNT(1); return counted(a.v * b.v); }
+inline Counted operator/(Counted a, Counted b) { COUNT(1); return counted(a.v / b.v); }
 inline Counted operator-(Counted a) { return counted(-a.v); }
 // a fused multiply-add: two operations, one rounding
 inline Counted fused(Counted a, Counted b, Counted c) {
-  flops += 2;
+  COUNT(2);
   return counted(std::fma(a.v, b.v, c.v));
 }
 inline bool operator>(Counted a, Counted b) { return a.v > b.v; }
@@ -87,13 +98,14 @@ struct Run {
   Args<T> a;
   template <int NF>
   int run() {
-    return emulate_blocks((a.N + 1) * a.chunks, THREADS, expansions_kernel<T, NF>, a);
+    return emulate_blocks(launch_blocks<T, NF>(a), Shape<T, NF>::THREADS,
+                          expansions_kernel<T, NF>, a);
   }
 };
 template <typename T>
 static int run(const void* const* in, const long long* ld, void* const* out, int N, int B,
                int n_feet, int nc, int flags) {
-  Run<T> fn{make_args<T>(in, ld, out, N, B, nc, flags)};
+  Run<T> fn{make_args<T>(in, ld, out, N, B, nc, flags, 3 * n_feet)};
   const int err = with_feet(n_feet, fn);
   return err < 0 ? 2 : err;
 }
@@ -108,8 +120,23 @@ extern "C" int emulated_f64(const void* const* in, const long long* ld, void* co
 // The operations of a launch on f64 tables, counted over every thread; -1 on a fault.
 extern "C" long long count_flops(const void* const* in, const long long* ld, void* const* out,
                                  int N, int B, int n_feet, int nc, int flags) {
-  flops = 0;
+  flops = recomputed = 0;
   return run<Counted>(in, ld, out, N, B, n_feet, nc, flags) == 0 ? flops : -1;
+}
+// Of the last count_flops, the operations that a piece computed again.
+extern "C" long long count_recomputed() { return recomputed; }
+// Resume the warps of a block last to first (on) or first to last.
+extern "C" void set_warps_reversed(int on) { emulation::warps_reversed = on != 0; }
+// The shared memory of the last block emulated: n doubles from value `off`,
+// and where each staged leaf sits (SM_CB, ... SM_ROT, in the order of the
+// inputs cb, Rd, Qd, Qdf, w, then the six parameters).
+extern "C" void shared_f64(double* out, int off, int n) {
+  std::memcpy(out, smem_raw + static_cast<size_t>(off) * sizeof(double), n * sizeof(double));
+}
+extern "C" void staged_at(int* out) {
+  const int at[] = {SM_CB, SM_RD, SM_QD, SM_QDF, SM_W, SM_FOOT, SM_INERTIA, SM_MASS,
+                    SM_COM, SM_COM_MASS, SM_ROT};
+  std::memcpy(out, at, sizeof(at));
 }
 """
 
@@ -133,6 +160,10 @@ def emulated(tmp_path_factory):
         getattr(lib, name).argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
         getattr(lib, name).restype = ctypes.c_longlong if name == "count_flops" else ctypes.c_int
     lib.expansions_table.argtypes = [ctypes.c_void_p]
+    lib.count_recomputed.restype = ctypes.c_longlong
+    lib.set_warps_reversed.argtypes = [ctypes.c_int]
+    lib.shared_f64.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    lib.staged_at.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -193,10 +224,12 @@ def test_tables_match_the_wrapper(emulated):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("batch", [1, 7, 33, 130])
+@pytest.mark.parametrize("batch", [1, 7, 31, 32, 33, 130])
 def test_emulated_kernel_matches_plain(emulated, dtype, batch):
     """The fleet controller's problem, every leaf per scenario: one
-    scenario, ragged single blocks, and two blocks a knot (130)."""
+    scenario, a ragged single tile (7, 31), one whole tile (32), a tile and
+    one scenario (33), and five tiles a knot, the last ragged (130); the
+    terminal knot's tiles a warp of one or more blocks."""
     spec, prob, _ = examples.line_search_case("standing", batch, dtype, "cpu", 10, 8)
     xs, us, lam, rho = _inputs(spec, prob)
     z = lam + rho * tfl.constraint_values(prob, xs, us)
@@ -282,6 +315,101 @@ def test_flop_count_matches_the_device_code(emulated, n_feet, nc):
     outputs = k8.new_outputs(dims, xs)
     count = emulated.count_flops(*k8.c_tables(table, outputs), *dims)
     assert count == 3 * k8.flops_per_knot(n_feet, nc) + k8.STATE_FLOPS
+    # the Bs piece's own inverse inertia, ½h, ½h², q_m and ½G(q_m), apart
+    assert emulated.count_recomputed() == 3 * k8.RECOMPUTED_FLOPS
     want = k8.knot_expansions_ref(spec, prob, xs, us, lam, rho)
     for g, w in zip(outputs, want):  # the counted run computes the same values
         assert float((g - w).abs().max()) <= 1e-12 * float(w.abs().max())
+
+
+# K8's input table, by name (csrc/expansions.cu enum Input)
+_INPUTS = ("xs", "us", "x_ref", "u_ref", "Qd", "Qdf", "Rd", "w", "Cu", "cb", "lam", "foot_pos",
+           "inertia", "mass", "com_offset", "com_mass", "rot_body_to_world", "h", "rho")
+# the leaves a block stages where every scenario shares them, in the order of `staged_at`
+_STAGED = ("cb", "Rd", "Qd", "Qdf", "w", "foot_pos", "inertia", "mass", "com_offset",
+           "com_mass", "rot_body_to_world")
+
+
+@pytest.mark.parametrize("case", ["fixture", "mixed"])
+def test_emulated_kernel_stages_the_shared_leaves(emulated, case):
+    """A block copies the leaves every scenario shares (batch extent 1) to
+    shared memory, and nothing of a per-scenario leaf: after a launch the
+    last block's shared memory (a terminal block: knot N's cb row and w)
+    holds each shared leaf's values and, where a leaf is per scenario, the
+    0xff bytes the emulation fills it with. "fixture": every leaf shared;
+    "mixed": the fleet controller's problem with Cu, cb, Rd and the
+    inertia shared, per-knot w and cb, the rest per scenario. (Cu, shared
+    or not, goes to a stage block's tile, which the results hold.)"""
+    dtype = torch.float64
+    if case == "fixture":
+        spec, prob, _ = examples.line_search_case("fixture", 9, dtype, "cpu", 20, 8)
+    else:
+        spec, prob, _ = examples.line_search_case("standing", 9, dtype, "cpu", 6, 8)
+        N = prob.us_init.shape[0]
+        cb = prob.cb[None, ..., :1].expand(N + 1, *prob.cb.shape[:-1], 1).clone()
+        cb[N, 4::6] = 0.0
+        w = torch.as_tensor(1.0 + np.random.default_rng(5).random((N + 1, 9)), dtype=dtype)
+        prob = prob._replace(Cu=prob.Cu[..., :1].contiguous(), cb=cb, Rd=prob.Rd[..., :1], w=w)
+    xs, us, lam, rho = _inputs(spec, prob)
+    _hold(emulated, spec, prob, xs, us, lam, rho, f"{case}: staged")
+    table, (N, _, _, nc, flags) = k8.check_inputs(spec, prob, xs, us, lam, rho)
+    by_name = dict(zip(_INPUTS, table))
+    at = (ctypes.c_int * len(_STAGED))()
+    emulated.staged_at(at)
+    staged = 0
+    for name, off in zip(_STAGED, at):
+        t, extent = by_name[name]
+        values = t[..., 0].reshape(-1)
+        if name == "cb" and flags & 2:
+            values = t[N, :, 0]
+        elif name == "w" and flags & 1:
+            values = t[N, 0].reshape(1)
+        got = np.empty(values.numel())
+        emulated.shared_f64(got.ctypes.data, off, got.size)
+        if extent == 1:
+            assert np.array_equal(got, values.numpy()), name
+            staged += 1
+        else:
+            assert np.isnan(got).all(), f"{name} is per scenario and was staged"
+    assert staged == (11 if case == "fixture" else 6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_emulated_kernel_orders_its_pieces_by_the_barrier(emulated, dtype):
+    """The luu warps read which rows are active from the AL-terms warp
+    through shared memory after a barrier: with a block's warps resumed
+    last to first (the luu warps first), every output is still the plain
+    version's."""
+    spec, prob, _ = examples.line_search_case("standing", 33, dtype, "cpu", 6, 8)
+    xs, us, lam, rho = _inputs(spec, prob)
+    z = lam + rho * tfl.constraint_values(prob, xs, us)
+    assert bool((z >= 0).any()) and bool((z < 0).any())
+    emulated.set_warps_reversed(1)
+    try:
+        _hold(emulated, spec, prob, xs, us, lam, rho, "warps last to first")
+    finally:
+        emulated.set_warps_reversed(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_emulated_kernel_reads_strided_parameters(emulated, dtype):
+    """Batch-first parameters, each scenario its own (the feet, the rotation,
+    and here also the inertia and the CoM offset, scaled a scenario), go to
+    the kernel in place, read through their strides, and give the plain
+    version's outputs."""
+    spec, prob, _ = examples.line_search_case("standing", 33, dtype, "cpu", 6, 8)
+    p = prob.params
+    scale = torch.as_tensor(1.0 + 0.2 * np.random.default_rng(6).random(33), dtype=dtype)
+    inertia = torch.movedim(p.inertia[..., 0][None] * scale[:, None, None], 0, -1)
+    com = torch.movedim(p.com_offset[..., 0][None] * scale[:, None], 0, -1)
+    prob = prob._replace(params=p._replace(inertia=inertia, com_offset=com))
+    xs, us, lam, rho = _inputs(spec, prob)
+    table, _ = k8.check_inputs(spec, prob, xs, us, lam, rho)
+    by_name = dict(zip(_INPUTS, table))
+    for name, rows in (("foot_pos", 12), ("inertia", 9), ("com_offset", 3),
+                       ("rot_body_to_world", 9)):
+        given = getattr(prob.params, name)
+        t, extent = by_name[name]
+        assert not given.is_contiguous() and t.data_ptr() == given.data_ptr(), name
+        assert extent == 33 and k8._strides(t) == (1, rows), name
+    _hold(emulated, spec, prob, xs, us, lam, rho, "strided parameters")

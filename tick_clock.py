@@ -12,7 +12,8 @@ Prints the card's name and power limit, then one JSON object:
   walk flow's horizon 8, 2 x 3, each from the carry of a short operator flow
   (25 prime ticks and 15 standing ticks against the peer's plant): p50 /
   min / max ms of 20 warm replays with the pull to the host, and the device
-  operations and busy ms of one traced replay;
+  operations and busy ms of one traced replay (every trace also gives each
+  hand-written kernel's launches and device ms, `KERNELS`);
 - the quaternion-MPC fleet controller's step (N=10, 2 AL x 5 iLQR, 8 alphas,
   f32) at B=4096: p50 / min / max ms of 10 steps after 2 warm-ups, each
   ending in a synchronise, and the device operations of one traced step;
@@ -44,6 +45,9 @@ import time
 import torch
 
 FLEET_B = 4096
+# the hand-written kernels a trace splits out: tag -> part of the kernel's name
+KERNELS = {"K1": "riccati_sweep_kernel", "K2": "line_search_kernel",
+           "K4": "assoc_backward_kernel", "K7": "articulated_kernel", "K8": "expansions_kernel"}
 
 
 def _trace(fn):
@@ -62,8 +66,13 @@ def _trace(fn):
     events = prof.events()
     ranges = {e.name for e in events if getattr(e, "is_user_annotation", False)}
     ops = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in ranges]
+    kernels = {}
+    for tag, name in KERNELS.items():
+        mine = [e for e in ops if name in e.name]
+        kernels[tag] = [len(mine), sum(e.time_range.elapsed_us() for e in mine) / 1e3]
     return {"device_ops": len(ops),
-            "device_busy_ms": sum(e.time_range.elapsed_us() for e in ops) / 1e3}
+            "device_busy_ms": sum(e.time_range.elapsed_us() for e in ops) / 1e3,
+            "kernels_launches_ms": kernels}
 
 
 def _ms(times):
