@@ -4,7 +4,7 @@
     python3 chip_smoke.py --kernels-only   # phases 1-3 (K2 too), K7 on seeded states, the kernels' timings; no result line
     python3 chip_smoke.py --kernels-only --k7-baseline OLD.cu   # and K7 timed beside another source of it
     python3 chip_smoke.py --kernels-only --k2-baseline OLD.cu   # and K2 held bit for bit and timed beside another
-    python3 chip_smoke.py --kernels-only --k8-baseline OLD.cu   # and K8 the same
+    python3 chip_smoke.py --kernels-only --k8-baseline OLD.cu[,OTHER.cu]   # and K8 the same
     python3 chip_smoke.py --hardware-only  # phases 1-2, 14 and 15: the hardware loop, the fleet over ranks, the CLI; no result line
 
 Phases, each printing its results (any failure raises, so the script exits
@@ -15,8 +15,10 @@ non-zero before the last line):
 2. build: compiles the CUDA kernels from `quaternion_mpc_tpu_torch/csrc/`,
    one nvcc per source, all at once, and prints what ptxas reports of each
    (registers, stack, spills); K1 must not spill, nor K4 in f32, nor K7 in
-   f32 or f64, nor K2's 52 kernels, nor K8's 8 (f32 and f64, one to four
-   feet);
+   f32 or f64, nor K2's 52 kernels, nor K8's 26 (f32 and f64: the
+   quaternion SRB and the Euler SRB by the midpoint rule and forward Euler
+   at one to four feet, the attitude model), which keep no stack but the
+   Euler SRB's sine and cosine (`K8_STACK`);
 3. kernel vs plain: K1 (`riccati_sweep`) against `riccati_sweep_ref` on the
    Go1 fleet's real expansions, f32 and f64, N in {10, 20}, B in {1, 7, 1000,
    4096, 16385} (one warp, a ragged single tile, a ragged last tile, full
@@ -47,14 +49,21 @@ non-zero before the last line):
    falling_cat's steep starts at a large step) is held by its decision
    alone, and a scenario whose plain selection runs away not at all
    (counted and printed; none in any other model's checks);
-   K8 (`expansions`, the quaternion SRB's knot expansions of a backward
-   pass) against `knot_expansions_ref`, every element of its eight outputs,
-   at the fleet step's shape (N=10, B in {1, 7, 31, 33, 130, 4096}), the hardware
-   loop's (N in {6, 8}, B=1), the golden fixture's (N=20, B=256, leaves
-   shared along B), the humanoid's (two feet, N=20, B=33) and the fleet's
-   with per-knot w and cb and a terminal weight (B=4096), multipliers drawn
-   so that some rows are active: f64 to 1e-12 of each output's scale, f32
-   to 1e-5, and bit for bit wherever B > 1;
+   K8 (`expansions`, the knot expansions of a backward pass) against
+   `knot_expansions_ref`, every element of its eight outputs: the
+   quaternion SRB at the fleet step's shape (N=10, B in {1, 7, 31, 33, 130,
+   4096}), the hardware loop's (N in {6, 8}, B=1), the golden fixture's
+   (N=20, B=256, leaves shared along B), the humanoid's (two feet, N=20,
+   B=33) and the fleet's with per-knot w and cb and a terminal weight
+   (B=4096); the Euler SRB at the convex fleet's (f32 N=10 B in {7, 4096},
+   f64 B=256) and the convex fixture's (forward Euler, N=30, f64 B in {1,
+   256}, f32 B=33); the attitude model at the falling_cat fleet's (N=40,
+   f32 B in {7, 4096}, f64 B in {1, 256}) and at its iterate after 1 x 4
+   iterations, runaway starts included (B=4096, f32 and f64); multipliers
+   drawn so that some rows are active: f64 to 1e-12 of each output's scale
+   (each scenario's for the other models), f32 to 1e-5, the SRBs bit for
+   bit wherever B > 1, the attitude model with as many non-finite elements
+   as the plain version in every output;
 4. main path: the Go1 quaternion-MPC fleet controller (N=10, 2 AL x 5 iLQR,
    8 line-search alphas) at B in {256, 4096, 16384}, f32, counting K1, K2
    and K8 launches (10 each a solve); then f64 at B=256 against the same
@@ -63,9 +72,9 @@ non-zero before the last line):
    From here on every counted path holds K2 to one launch an iLQR iteration
    of a solve of a model it has (beside K1 or K4's fused entry: the
    quaternion SRB's, the convex fleet's and fixture's, falling_cat's) and to
-   none in the bicycle's, and K8 to as many as K2's on the quaternion SRB
-   and none on any other model's path, and adds what it counted to its
-   instantiation's line and to K8's in the kernels output, by path;
+   none in the bicycle's, and K8 to as many as K2's (K8 has every model K2
+   has), and adds what it counted to its instantiation's line and to K8's
+   in the kernels output, by path;
 5. fixture guard: the golden standing fixture (default SolverOptions) in f32
    and f64 against the reference's golden optimum, through the sweep (B=256)
    and through the associative scan (f32 at B=1 under backend="auto", f64
@@ -77,7 +86,9 @@ non-zero before the last line):
    B=4096; the convex fleet's f32 B=4096 and f64 B=256, the convex fixture's
    f64 N=30 B in {1, 256}, the falling_cat fleet's N=40 f32 and f64 B=4096
    and f64 B=1) and K8 alone (f32 N=10 at B in {4096, 16384}, the hardware
-   tick's N=6 at B=1, f64 N=10 at B in {256, 4096}), each beside its bound
+   tick's N=6 at B=1, f64 N=10 at B in {256, 4096}; the convex fleet's f32
+   B=4096 and f64 B=256, the convex fixture's f64 N=30 B in {1, 256}, the
+   falling_cat fleet's f32 N=40 B=4096 and f64 B=1), each beside its bound
    on the card (the larger of bytes over
    3.35 TB/s and operations over the peak rate of the type) and the plain
    version's time;
@@ -86,7 +97,7 @@ non-zero before the last line):
    tick of build + solve, under backend="auto" (K4) and "sweep" (K1),
    counting each kernel's launches per tick;
 8. convex fleet: the Euler convex-MPC baseline (N=10, 1 AL x 5 iLQR, 8
-   alphas) at B=4096 f32, counting K1 and K2 launches (5 each), its mean
+   alphas) at B=4096 f32, counting K1, K2 and K8 launches (5 each), its mean
    Σfz beside the same solve's with the plain line search, its p50 step and
    a profile of one step, and f64 at B=256 against the CPU;
 9. profile: device time by kernel over one B=4096 quaternion step, with the
@@ -145,15 +156,17 @@ non-zero before the last line):
    {15, 30}, B in {1, 7, 4096}, and the Go1 expansions with drawn mixed rows
    (12 x 12, not embedded), N = 10, B in {7, 4096}, f32 and f64; in the main
    process, counted: one default solve (the quat fixture, 6 x 10: exactly 60
-   K1 launches, no K4) and one of the convex fixture (60 K1, 60 K2), one
-   falling_cat receding tick (2 x 8: 16 K1, 16 K2) and the
+   K1 launches, no K4) and one of the convex fixture (60 K1, 60 K2, 60 K8),
+   one falling_cat receding tick (2 x 8: 16 K1, 16 K2, 16 K8) and the
    bicycle's receding solves (state rows Cx; 2 x 8: 16 K1 launches each, the
    kernel with the cross term); a falling_cat fleet (B=4096, f32, N=40,
    3 x 25, starts at 100-175 degrees about seeded axes): one counted warm-up
-   solve (75 K1 and 75 K2 launches), p50 / min / max of 3 more, one solve of the same
-   starts in f64, both fleets held to the reference's bounds in every start
-   but the few beyond 160 degrees that run away (the cost is unbounded below
-   in |q|; none up to 160 degrees may), one profiled solve, and K1 alone at
+   solve (75 K1, 75 K2 and 75 K8 launches), p50 / min / max of 3 more, one
+   solve of the same starts in f64, both fleets held to the reference's
+   bounds in every start but the few beyond 160 degrees that run away (the
+   cost is unbounded below in |q|; none up to 160 degrees may; the runaway
+   sets and the held count printed beside the parent's, `CAT_PARENT`), one
+   profiled solve, and K1 alone at
    this shape beside the bound of the function at its own size. As workers beside phase 11's: the three
    golden C++ fixtures (quat N=20, trot nu=6, convex N=30 forward Euler) at
    default options in f64, one problem and B=256, against the JSON at the
@@ -253,10 +266,11 @@ its build options and, with --k2-baseline, another source of it with the
 same C interface (the previous design), held bit for bit against the shipped
 build and timed in turns; its launch plans swept; the wrapper's host time by
 part; and the clocks of each pass from a -DK2_PHASE_CLOCKS build. For K8
-also, with --k8-baseline (phase_k8_designs), another source of it (the
-previous design, with the batch-extent interface), held bit for bit against
-the shipped build at every checked shape and timed in turns, alone and with
-K1 after it. It prints no result line.
+also, with --k8-baseline (phase_k8_designs), other sources of it with the
+same C interface (the body before the template over the model, or the
+shipped one with another block shape), each held bit for bit against the
+shipped build at every checked shape of the instantiations it has and timed
+in turns with it, alone and with K1 after it. It prints no result line.
 """
 
 from __future__ import annotations
@@ -368,8 +382,8 @@ def _check(cond, what):
         raise AssertionError(what)
 
 
-# K2's launches on each counted path of this process, by instantiation, and
-# K8's, for the kernels line
+# K2's and K8's launches on each counted path of this process, by
+# instantiation, for the kernels line
 K2_LAUNCHES = {}
 K8_LAUNCHES = {}
 
@@ -381,24 +395,16 @@ def _k8():
     return expansions.knot_expansions
 
 
-def _k8_want(k2, instantiation):
-    """K8's launches on a run that launched K2 ``k2`` times: as many on a
-    path of the quaternion SRB (both once an iLQR iteration), none on any
-    other model's."""
-    return k2 if instantiation == "quat_srb_midpoint" else 0
-
-
 def _k2_count(path, n, instantiation="quat_srb_midpoint", *, k8):
     """Adds ``n`` K2 launches, as counted on a path of this process, to
     ``path``'s of ``instantiation`` in the kernels line, and ``k8``, K8's
-    launches counted on the same run, to the path's K8 launches, after
-    holding them to `_k8_want`."""
-    paths = K2_LAUNCHES.setdefault(instantiation, {})
-    paths[path] = paths.get(path, 0) + n
-    _check(k8 == _k8_want(n, instantiation),
-           f"{path}: K8 launches {k8}, expected {_k8_want(n, instantiation)} beside {n} of K2's "
-           f"{instantiation}")
-    K8_LAUNCHES[path] = K8_LAUNCHES.get(path, 0) + k8
+    launches counted on the same run, to the path's K8 launches of the same
+    instantiation, after holding them equal: K8 has every model K2 has, and
+    both run once an iLQR iteration."""
+    for counts, launched in ((K2_LAUNCHES, n), (K8_LAUNCHES, k8)):
+        paths = counts.setdefault(instantiation, {})
+        paths[path] = paths.get(path, 0) + launched
+    _check(k8 == n, f"{path}: K8 launches {k8}, expected {n} beside {n} of K2's {instantiation}")
 
 
 def _first_pass(prob, spec):
@@ -777,6 +783,19 @@ def phase_line_search_vs_plain(device):
                       f"one on the same inputs, {tag}: J_k "
                       f"{float(((p32 - p64).abs() / scale).max()):.2e} of max(|J_k|, |J|)")
     print(f"[kernel] line_search: {checks} checks, {flips} f32 flips in all (each a margin case)")
+    # K2's inputs come from a first backward pass, whose expansions are K8's
+    # on every model K2 has: the falling_cat fleet's shape again with the
+    # plain expansions behind its gains (an untagged spec), as K2's check was
+    # fed before K8 had the attitude model, for the record of the runaway
+    # rollouts set aside
+    from quaternion_mpc_tpu_torch import examples
+
+    shape = K2_MAIN_OF["attitude_midpoint"]
+    spec, prob, _ = examples.line_search_case("falling_cat", 4096, torch.float32, device, 40, 12)
+    kw = examples.line_search_inputs(spec._replace(expansions=None), prob, 12)
+    for given in (True, False):
+        _hold_line_search(spec, prob, kw if given else {**kw, "J": None},
+                          f"{shape} (its gains through the plain expansions)")
     return worst, flips, checks
 
 
@@ -806,25 +825,64 @@ def phase_line_search_timing(device):
     return by_shape
 
 
-# K8's checked shapes: (problem, N, batches, leaves). The fleet step's (N=10:
-# one scenario, ragged tiles of 32, many tiles), the hardware loop's ticks (N=6
-# and 8, B=1), the golden fixture's (N=20, leaves shared along B), the
-# humanoid's (two feet) and the fleet's with per-knot leaves (w and cb per
-# knot, a terminal weight Qdf, one weight row for the fleet).
+# K8's checked shapes of the quaternion SRB: (problem, N, batches, leaves).
+# The fleet step's (N=10: one scenario, ragged tiles of 32, many tiles), the
+# hardware loop's ticks (N=6 and 8, B=1), the golden fixture's (N=20, leaves
+# shared along B), the humanoid's (two feet) and the fleet's with per-knot
+# leaves (w and cb per knot, a terminal weight Qdf, one weight row for the
+# fleet).
 K8_CHECKED = (("standing", HORIZON, (1, 7, 31, 33, 130, 4096), "per scenario"),
               ("standing", 6, (1,), "per scenario"), ("standing", 8, (1,), "per scenario"),
               ("fixture", 20, (256,), "shared"), ("humanoid", 20, (33,), "per scenario"),
               ("standing", HORIZON, (4096,), "per knot"))
+# K8's other instantiations' checked shapes: (dtype, problem, N, B, inputs).
+# Each model's paths' (the convex fleet's f32 N=10 B=4096 and f64 B=256; the
+# convex fixture's f64 N=30 at B=256 and B=1, forward Euler, leaves shared
+# along B; the falling_cat fleet's f32 N=40 B=4096 and f64 B=1), a ragged
+# tile of each, the falling_cat fleet's iterate after 1 x 4 iLQR iterations
+# ("iterate"), its runaway starts included, and its first expansions with
+# starts blown up so that values overflow ("blown": `_k8_blown_inputs`), in
+# f32 and f64.
+K8_MODELS_CHECKED = (
+    (torch.float32, "convex", HORIZON, 4096, "first"), (torch.float32, "convex", HORIZON, 7, "first"),
+    (torch.float64, "convex", HORIZON, 256, "first"),
+    (torch.float64, "convex_fixture", 30, 256, "first"),
+    (torch.float64, "convex_fixture", 30, 1, "first"),
+    (torch.float32, "convex_fixture", 30, 33, "first"),
+    (torch.float32, "falling_cat", 40, 4096, "first"), (torch.float32, "falling_cat", 40, 7, "first"),
+    (torch.float64, "falling_cat", 40, 1, "first"), (torch.float64, "falling_cat", 40, 256, "first"),
+    (torch.float32, "falling_cat", 40, 4096, "iterate"),
+    (torch.float64, "falling_cat", 40, 4096, "iterate"),
+    (torch.float32, "falling_cat", 40, 7, "blown"), (torch.float64, "falling_cat", 40, 7, "blown"))
+# The instantiation of each problem of K8's (kernels/expansions.INSTANTIATIONS)
+K8_MODEL = {"standing": "quat_srb_midpoint", "fixture": "quat_srb_midpoint",
+            "humanoid": "quat_srb_midpoint", "convex": "euler_srb_midpoint",
+            "convex_fixture": "euler_srb_euler", "falling_cat": "attitude_midpoint"}
 # K8 against its plain version on the same inputs, each output relative to
-# its largest magnitude: f64 1e-12; f32 1e-5. At B > 1 K8 computes what
-# PyTorch computes on the card, operation for operation and in its order of
-# summation (csrc/expansions.cu), so there every element must be equal; at
-# B = 1 PyTorch reduces a sum whose terms lie next to each other in memory
-# by another scheme, and the last bits may differ.
+# its largest magnitude (the other models: to each scenario's largest
+# magnitude of the output, so that a runaway start's does not hide the
+# others'): f64 1e-12; f32 1e-5. At B > 1 the quaternion and the Euler SRB's
+# instantiations compute what PyTorch computes on the card, operation for
+# operation and in its order of summation (csrc/expansions.cu), so there
+# every element must be equal; at B = 1 PyTorch reduces a sum whose terms
+# lie next to each other in memory by another scheme, and the last bits may
+# differ. The attitude model's plain Jacobian is torch.func.jacfwd's: held
+# to the tolerance, with as many non-finite elements in each output as the
+# plain version's.
 K8_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
-# K8 alone: (dtype, N, B); the first is the kernels line's (the fleet step's)
-K8_TIMED = ((torch.float32, HORIZON, 4096), (torch.float32, 6, 1), (torch.float32, HORIZON, 16384),
-            (torch.float64, HORIZON, 256), (torch.float64, HORIZON, 4096))
+# K8 alone: (dtype, problem, N, B); the first is the kernels line's (the fleet
+# step's), then the other instantiations' on their paths' shapes (K8_MAIN_OF)
+K8_TIMED = ((torch.float32, "standing", HORIZON, 4096), (torch.float32, "standing", 6, 1),
+            (torch.float32, "standing", HORIZON, 16384), (torch.float64, "standing", HORIZON, 256),
+            (torch.float64, "standing", HORIZON, 4096),
+            (torch.float32, "convex", HORIZON, 4096), (torch.float64, "convex", HORIZON, 256),
+            (torch.float64, "convex_fixture", 30, 256), (torch.float64, "convex_fixture", 30, 1),
+            (torch.float32, "falling_cat", 40, 4096), (torch.float64, "falling_cat", 40, 1))
+# each instantiation's shape in the kernels line, by K8_TIMED's tags
+K8_MAIN_OF = {"quat_srb_midpoint": f"float32 N={HORIZON} B=4096",
+              "euler_srb_midpoint": f"convex float32 N={HORIZON} B=4096",
+              "euler_srb_euler": "convex_fixture float64 N=30 B=256",
+              "attitude_midpoint": "falling_cat float32 N=40 B=4096"}
 
 
 def _k8_inputs(name, horizon, batch, dtype, device, leaves="per scenario"):
@@ -853,61 +911,140 @@ def _k8_inputs(name, horizon, batch, dtype, device, leaves="per scenario"):
     return spec, prob, xs, us, lam, torch.ones((), dtype=dtype, device=device)
 
 
+def _k8_iterate_inputs(batch, dtype, device, iterations=4):
+    """The falling_cat fleet's (`examples.falling_cat_fleet`, N=40) expansions
+    at its iterate after 1 AL x ``iterations`` iLQR iterations (xs, us and
+    the multipliers there, penalty 1): the steep starts that run away have
+    done so by then (|q| far from 1)."""
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.solver import al_ilqr, fleet
+
+    spec, prob, opts = examples.falling_cat_fleet(batch, dtype, device, seed=0)
+    spec, prob = al_ilqr.fleet_spec(spec), al_ilqr.lift_problem(prob)
+    opts = opts._replace(al_iterations=1, ilqr_iterations=iterations)
+    sol = fleet.make_fleet_solver(spec, opts, backend="sweep")(prob)
+    return spec, prob, sol.xs, sol.us, sol.lam, torch.ones((), dtype=dtype, device=device)
+
+
+def _k8_blown_inputs(dtype, device):
+    """The falling_cat fleet's first expansions (`_k8_inputs`, N=40, B=7)
+    with runaway states put in: scenario 1's quaternion blown up at knots
+    3-5 far enough that the expansions' products overflow, scenario 4's
+    first state Inf, scenario 5's a NaN (as
+    tests/test_torch_expansions_emulation.py puts them)."""
+    spec, prob, xs, us, lam, rho = _k8_inputs("falling_cat", 40, 7, dtype, device)
+    xs = xs.clone()
+    xs[3:6, 0:4, 1] *= 1e13 if dtype == torch.float32 else 1e105
+    xs[0, 5, 4] = float("inf")
+    xs[2, 1, 5] = float("nan")
+    return spec, prob, xs, us, lam, rho
+
+
+def _k8_differ(got, want, per_scenario):
+    """(the largest relative error over the outputs, each relative to its
+    largest magnitude or, with ``per_scenario``, to each scenario's; those
+    errors by output; the largest |difference|; each output's non-finite
+    elements (K8's, the plain version's); whether they lie in the same
+    places), over the elements finite on both sides."""
+    errs, abs_err, counts, same = [], 0.0, [], True
+    for g, w in zip(got, want):
+        _check(g.shape == w.shape, f"K8: an output of shape {tuple(g.shape)}, plain "
+                                   f"{tuple(w.shape)}")
+        bad_g, bad_w = ~torch.isfinite(g), ~torch.isfinite(w)
+        counts.append((int(bad_g.sum()), int(bad_w.sum())))
+        same = same and bool(torch.equal(bad_g, bad_w))
+        d = torch.where(bad_g | bad_w, 0.0, (g - w).abs())
+        mag = torch.where(bad_w, 0.0, w.abs())
+        if per_scenario:
+            err = d.flatten(0, -2).amax(0) / mag.flatten(0, -2).amax(0).clamp_min(1e-300)
+        else:
+            err = d.max() / mag.max().clamp_min(1e-300)
+        errs.append(float(err.max()))
+        abs_err = max(abs_err, float(d.max()))
+    return max(errs), errs, abs_err, counts, same
+
+
 def phase_expansions_vs_plain(device):
-    """K8 against knot_expansions_ref at K8_CHECKED's shapes, f32 and f64,
-    every element of the eight outputs (they start uninitialised; each is
-    held relative to its output's largest magnitude, K8_RTOL, and at B > 1
-    equal bit for bit). Returns
-    ({"f32", "f64"}: the largest relative error over all shapes, and the
-    f32 kernel's max abs error at the fleet step's shape)."""
+    """K8 against knot_expansions_ref, f32 and f64, every element of the
+    eight outputs (they start uninitialised): the quaternion SRB at
+    K8_CHECKED's shapes (each output held relative to its largest magnitude,
+    K8_RTOL, finite, and at B > 1 equal bit for bit), the other
+    instantiations at K8_MODELS_CHECKED's (relative to each scenario's
+    largest magnitude; the Euler SRB's at B > 1 equal bit for bit; each
+    output with as many non-finite elements as the plain version's, some at
+    the blown-up starts). Returns
+    ({"f32", "f64"}: the largest relative error over all shapes, and
+    {instantiation: the kernel's max abs error at its kernels-line shape,
+    K8_MAIN_OF})."""
     from quaternion_mpc_tpu_torch.kernels import expansions as k8
 
-    worst, main_abs = {}, None
-    for dtype in (torch.float32, torch.float64):
-        tname = str(dtype)[6:]
-        for name, horizon, batches, leaves in K8_CHECKED:
-            for batch in batches:
-                args = _k8_inputs(name, horizon, batch, dtype, device, leaves)
-                before = k8.knot_expansions.launches
-                got = k8.knot_expansions(*args)
-                torch.cuda.synchronize()
-                _check(k8.knot_expansions.launches == before + 1, "knot_expansions did not launch")
-                want = k8.knot_expansions_ref(*args)
-                errs, abs_err = [], 0.0
-                for g, w in zip(got, want):
-                    _check(g.shape == w.shape and bool(torch.isfinite(g).all()),
-                           f"K8 {name} {tname} B={batch}: an output of shape {tuple(g.shape)} "
-                           f"(plain {tuple(w.shape)}) or not finite")
-                    d = float((g - w).abs().max())
-                    errs.append(d / max(float(w.abs().max()), 1e-300))
-                    abs_err = max(abs_err, d)
-                err = max(errs)
-                tag = f"{tname} {name} N={horizon} B={batch} leaves {leaves}"
-                print(f"[kernel] expansions {tag} vs plain: max|err|/scale {err:.2e} (tol "
-                      f"{K8_RTOL[dtype]:g}; by output {', '.join(f'{e:.1e}' for e in errs)}), "
-                      f"max|err| {abs_err:.3e}")
-                _check(err <= K8_RTOL[dtype], f"K8 {tag}: {err:.3e} of scale")
-                _check(batch == 1 or abs_err == 0.0,
-                       f"K8 {tag}: max|err| {abs_err:.3e}, where PyTorch's own operations give "
-                       f"the same bits")
-                worst[tname] = max(worst.get(tname, 0.0), err)
-                if (dtype, name, horizon, batch, leaves) == (torch.float32, "standing", HORIZON,
-                                                             4096, "per scenario"):
-                    main_abs = abs_err
+    worst, main_abs = {}, {}
+    cases = [(dtype, name, horizon, batch, leaves) for dtype in (torch.float32, torch.float64)
+             for name, horizon, batches, leaves in K8_CHECKED for batch in batches]
+    for dtype, name, horizon, batch, leaves in cases + list(K8_MODELS_CHECKED):
+        tname, inst = str(dtype)[6:], K8_MODEL[name]
+        if leaves == "iterate":
+            args = _k8_iterate_inputs(batch, dtype, device)
+        elif leaves == "blown":
+            args = _k8_blown_inputs(dtype, device)
+        else:
+            args = _k8_inputs(name, horizon, batch, dtype, device,
+                              "per scenario" if leaves == "first" else leaves)
+        before = k8.knot_expansions.launches
+        got = k8.knot_expansions(*args)
+        torch.cuda.synchronize()
+        _check(k8.knot_expansions.launches == before + 1, "knot_expansions did not launch")
+        want = k8.knot_expansions_ref(*args)
+        quat = inst == "quat_srb_midpoint"
+        err, errs, abs_err, counts, same = _k8_differ(got, want, per_scenario=not quat)
+        tag = f"{tname} {name} N={horizon} B={batch} " + (
+            f"leaves {leaves}" if quat else "after 1 x 4 iterations" if leaves == "iterate"
+            else "starts blown up" if leaves == "blown" else "first iteration")
+        nonfinite = sum(c[1] for c in counts)
+        print(f"[kernel] expansions[{inst}] {tag} vs plain: max|err|/scale {err:.2e} (tol "
+              f"{K8_RTOL[dtype]:g}{'' if quat else ' of each scenario'}; by output "
+              f"{', '.join(f'{e:.1e}' for e in errs)}), max|err| {abs_err:.3e}"
+              + (f"; non-finite elements by output (K8 / plain) "
+                 f"{', '.join(f'{a}/{b}' for a, b in counts)}, in the same places: {same}"
+                 if nonfinite or any(c[0] for c in counts) else ""))
+        _check(err <= K8_RTOL[dtype], f"K8 {inst} {tag}: {err:.3e} of scale")
+        _check(all(a == b for a, b in counts) and (nonfinite == 0 or not quat)
+               and (nonfinite > 0 or leaves != "blown"),
+               f"K8 {inst} {tag}: non-finite elements {counts} (K8, plain)")
+        _check(batch == 1 or inst == "attitude_midpoint" or abs_err == 0.0,
+               f"K8 {inst} {tag}: max|err| {abs_err:.3e}, where PyTorch's own operations give "
+               f"the same bits")
+        worst[tname] = max(worst.get(tname, 0.0), err)
+        if leaves in ("first", "per scenario") and _k8_shape(dtype, horizon, batch, name) \
+                == K8_MAIN_OF[inst]:
+            main_abs[inst] = abs_err
+        del args, got, want
     return worst, main_abs
 
 
-def _k8_shape(dtype, horizon, batch):
-    return f"{str(dtype)[6:]} N={horizon} B={batch}"
+def _k8_shape(dtype, horizon, batch, name="standing"):
+    """A K8 shape's tag: "f32 N=10 B=4096" for the quaternion fleet's
+    problem, the problem's name in front for the others."""
+    tag = f"{str(dtype)[6:]} N={horizon} B={batch}"
+    return tag if K8_MODEL[name] == "quat_srb_midpoint" else f"{name} {tag}"
 
 
 def _k8_registers(kbuild, lib):
     """K8's registers a thread by instantiation, as ptxas reported them."""
     out = {}
     for k in kbuild.ptxas_report(lib):
-        m = re.search(r"expansions_kernelI([fd])Li(\d)E", k["name"])
-        out[f"{'float32' if m[1] == 'f' else 'float64'} n_feet={m[2]}"] = k["registers"]
+        inst, dtype, n_feet = _k8_kernel(k["name"])
+        out[f"{inst} {dtype} n_feet={n_feet}"] = k["registers"]
     return out
+
+
+def _k8_kernel(name):
+    """(instantiation, dtype, feet) of a K8 kernel's mangled name."""
+    m = re.search(r"expansions_kernelI([fd]).*?(QuatSrbMidpoint|EulerSrb|AttitudeMidpoint)"
+                  r"(?:ILi(\d)E(?:Lb([01])E)?)?", name)
+    inst = {"QuatSrbMidpoint": "quat_srb_midpoint", "AttitudeMidpoint": "attitude_midpoint",
+            "EulerSrb": "euler_srb_euler" if m[4] == "1" else "euler_srb_midpoint"}[m[2]]
+    return inst, "float32" if m[1] == "f" else "float64", int(m[3] or 1)
 
 
 def phase_expansions_timing(device):
@@ -919,18 +1056,18 @@ def phase_expansions_timing(device):
     from quaternion_mpc_tpu_torch.kernels import expansions as k8
 
     by_shape = {}
-    for dtype, horizon, batch in K8_TIMED:
-        args = _k8_inputs("standing", horizon, batch, dtype, device)
+    for dtype, name, horizon, batch in K8_TIMED:
+        args = _k8_inputs(name, horizon, batch, dtype, device)
         launch = lambda: k8.knot_expansions(*args)
         ms = _graph_time(launch, reps=50) * 1e3
         host_ms = _enqueue_time(launch) * 1e3
         plain_ms = _event_time(lambda: k8.knot_expansions_ref(*args), reps=5) * 1e3
         bound_ms, bound_by = _bound(k8.work(*args), dtype)
-        tag = _k8_shape(dtype, horizon, batch)
+        tag = _k8_shape(dtype, horizon, batch, name)
         by_shape[tag] = {"ms": ms, "host_enqueue_ms": host_ms, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by}
-        print(f"[timing] K8 expansions {tag}: kernel {ms:.4f} ms (graph replay; host "
-              f"{host_ms:.4f} ms a call), bound {bound_ms:.5f} ms by {bound_by} "
+        print(f"[timing] K8 expansions[{K8_MODEL[name]}] {tag}: kernel {ms:.4f} ms (graph "
+              f"replay; host {host_ms:.4f} ms a call), bound {bound_ms:.5f} ms by {bound_by} "
               f"({100 * bound_ms / ms:.2f}% of it reached), plain {plain_ms:.3f} ms")
     return by_shape
 
@@ -1120,28 +1257,24 @@ def phase_k2_designs(device, baseline=None):
                   + ", ".join(f"{p} {int(c)}" for p, c in split.items()))
 
 
-# --kernels-only --k8-baseline: another source of K8, the previous design,
-# whose C interface takes each input's batch extent and reads contiguous
-# inputs, held bit for bit against the shipped build at K8_CHECKED's shapes,
-# f32 and f64, and timed in turns with it at K8_TIMED's shapes, alone and
-# followed by K1 on its outputs.
+# --kernels-only --k8-baseline: other sources of K8 with the same C
+# interface (the quaternion SRB's body before it became a template over the
+# model: a source without expansions_tags binds as that instantiation alone;
+# or the shipped source with another block shape), each held bit for bit
+# against the shipped build at the checked shapes of the instantiations it
+# has, f32 and f64, and timed in turns with it at K8_TIMED's shapes of those,
+# alone and followed by K1 on its outputs.
 
 
-def _k8_launcher(lib, args, extents=False):
+def _k8_launcher(lib, args):
     """fn() that launches ``lib``'s K8 once on ``args`` (`_k8_inputs`) into
     outputs made once and returns them; the tables are made once too, so
-    that fn() is the kernel's launch alone. ``extents``: ``lib`` is a source
-    whose C interface takes each input's batch extent (the previous design),
-    fed contiguous copies."""
+    that fn() is the kernel's launch alone."""
     from quaternion_mpc_tpu_torch.kernels import expansions as k8
 
     table, dims = k8.check_inputs(*args)
     outputs = k8.new_outputs(dims, args[2])
-    if extents:
-        table = [(t.contiguous(), extent) for t, extent in table]
     ins, strides, outs = k8.c_tables(table, outputs)
-    if extents:
-        strides = (ctypes.c_longlong * k8.INPUTS)(*[extent for _, extent in table])
     entry = getattr(lib, k8._ENTRY[args[2].dtype])
 
     def fn():
@@ -1153,52 +1286,69 @@ def _k8_launcher(lib, args, extents=False):
     return fn
 
 
-def phase_k8_designs(device, baseline):
-    """--kernels-only --k8-baseline: that source built (K8's FLAGS, its
-    batch-extent interface), held bit for bit against the shipped build
+def phase_k8_designs(device, baselines):
+    """--kernels-only --k8-baseline SOURCE[,SOURCE...]: each source built
+    (K8's FLAGS, all at once), held bit for bit against the shipped build
     (every element of the eight outputs, f32 and f64, at every K8_CHECKED
-    shape, B=1 included) and timed in turns with it (the baseline, the
+    shape, B=1 included, and at K8_MODELS_CHECKED's first-iteration shapes of
+    the instantiations it has) and timed in turns with it (the sources, the
     shipped build, then back) by events around a replayed graph of 50
-    launches of the kernel alone at K8_TIMED's shapes, then of 20 launches
-    each followed by K1 on its outputs at the first and the last. The count
-    of differing elements is printed and must be 0."""
+    launches of the kernel alone at K8_TIMED's shapes of the instantiations
+    it has, then of 20 launches each followed by K1 on its outputs at the
+    quaternion SRB's first and last. The count of differing elements is
+    printed and must be 0."""
     from quaternion_mpc_tpu_torch.kernels import build as kbuild
     from quaternion_mpc_tpu_torch.kernels import expansions as k8
 
     t0 = time.perf_counter()
-    path = kbuild.build(pathlib.Path(baseline).resolve(), k8.FLAGS)
-    print(f"[K8] the baseline built in {time.perf_counter() - t0:.1f} s")
-    for k in kbuild.ptxas_report(path):
-        print(f"[K8] ptxas baseline {k['name'][-24:]}: {k['registers']} registers, "
-              f"{k['stack']} bytes stack, spill {k['stores']} / {k['loads']} bytes")
-    libs = {"shipped": k8._lib(), "baseline": k8.bind(path)}
-    order = ["baseline", "shipped"]
+    sources = [pathlib.Path(b).resolve() for b in baselines.split(",")]
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        paths = list(pool.map(lambda src: kbuild.build(src, k8.FLAGS), sources))
+    print(f"[K8] {len(paths)} baseline(s) built in {time.perf_counter() - t0:.1f} s")
+    libs = {"shipped": k8._lib()}
+    for src, path in zip(sources, paths):
+        name = f"baseline {src.name}"
+        for k in kbuild.ptxas_report(path):
+            print(f"[K8] ptxas {name} {k['name'][-44:]}: {k['registers']} registers, "
+                  f"{k['stack']} bytes stack, spill {k['stores']} / {k['loads']} bytes")
+        libs[name] = k8.bind(path)
+        print(f"[K8] {name} has the instantiations {libs[name].instantiations}")
 
-    n, worst, off, launches = 0, 0.0, 0, 0  # elements, largest, launches off, launches
-    for dtype in (torch.float32, torch.float64):
-        for name, horizon, batches, leaves in K8_CHECKED:
-            for batch in batches:
-                args = _k8_inputs(name, horizon, batch, dtype, device, leaves)
-                want = _k8_launcher(libs["shipped"], args)()
-                got = _k8_launcher(libs["baseline"], args, extents=True)()
-                n_one, worst_one = _k2_differ(got, want)
-                n, worst = n + n_one, max(worst, worst_one)
-                off, launches = off + (n_one > 0), launches + 1
-    torch.cuda.synchronize()
-    print(f"[K8] bits: baseline against the shipped build over {launches} launches (every "
-          f"output; K8_CHECKED's shapes, B=1 included, f32 and f64): {n} elements differ in "
-          f"{off} launches, largest |difference| {worst:.3e}")
-    _check(n == 0, f"K8: the baseline's outputs differ from the shipped build's in {n} elements")
+    quat_cases = [(dtype, name, horizon, batch, leaves)
+                  for dtype in (torch.float32, torch.float64)
+                  for name, horizon, batches, leaves in K8_CHECKED for batch in batches]
+    model_cases = [c for c in K8_MODELS_CHECKED if c[4] == "first"]
+    for lib_name, lib in list(libs.items())[1:]:
+        n, worst, off, launches = 0, 0.0, 0, 0  # elements, largest, launches off, launches
+        for dtype, name, horizon, batch, leaves in quat_cases + model_cases:
+            if K8_MODEL[name] not in lib.instantiations:
+                continue
+            args = _k8_inputs(name, horizon, batch, dtype, device,
+                              "per scenario" if leaves == "first" else leaves)
+            want = _k8_launcher(libs["shipped"], args)()
+            got = _k8_launcher(lib, args)()
+            n_one, worst_one = _k2_differ(got, want)
+            n, worst = n + n_one, max(worst, worst_one)
+            off, launches = off + (n_one > 0), launches + 1
+        torch.cuda.synchronize()
+        print(f"[K8] bits: {lib_name} against the shipped build over {launches} launches (every "
+              f"output; K8_CHECKED's shapes, B=1 included, and K8_MODELS_CHECKED's of its "
+              f"instantiations, f32 and f64): {n} elements differ in {off} launches, largest "
+              f"|difference| {worst:.3e}")
+        _check(n == 0, f"K8: {lib_name}'s outputs differ from the shipped build's in {n} "
+                       f"elements")
 
-    for dtype, horizon, batch in K8_TIMED:
-        args = _k8_inputs("standing", horizon, batch, dtype, device)
+    for dtype, name, horizon, batch in K8_TIMED:
+        order = [lib_name for lib_name, lib in libs.items()
+                 if K8_MODEL[name] in lib.instantiations][1:] + ["shipped"]
+        args = _k8_inputs(name, horizon, batch, dtype, device)
         times = {lib_name: [] for lib_name in order}
         for lib_name in order + order[::-1]:
-            fn = _k8_launcher(libs[lib_name], args, extents=lib_name == "baseline")
+            fn = _k8_launcher(libs[lib_name], args)
             times[lib_name].append(_graph_time(fn, reps=50) * 1e3)
         bound_ms, _ = _bound(k8.work(*args), dtype)
-        print(f"[K8] designs {_k8_shape(dtype, horizon, batch)}, the kernel alone, in turns "
-              f"forward / backward (bound {bound_ms:.5f} ms): " + "; ".join(
+        print(f"[K8] designs {_k8_shape(dtype, horizon, batch, name)}, the kernel alone, in "
+              f"turns forward / backward (bound {bound_ms:.5f} ms): " + "; ".join(
                   f"{lib_name} {times[lib_name][0]:.4f} / {times[lib_name][1]:.4f} ms "
                   f"({100 * bound_ms / statistics.mean(times[lib_name]):.2f}% of the bound)"
                   for lib_name in order))
@@ -1207,12 +1357,14 @@ def phase_k8_designs(device, baseline):
     # what K1 then reads of them from L2 depends on how K8 stored them
     from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
 
-    for dtype, horizon, batch in K8_TIMED[:1] + K8_TIMED[-1:]:
-        args = _k8_inputs("standing", horizon, batch, dtype, device)
+    quat = [shape for shape in K8_TIMED if K8_MODEL[shape[1]] == "quat_srb_midpoint"]
+    order = list(libs)[1:] + ["shipped"]
+    for dtype, name, horizon, batch in quat[:1] + quat[-1:]:
+        args = _k8_inputs(name, horizon, batch, dtype, device)
         reg = torch.zeros(batch, dtype=dtype, device=device)
         times = {lib_name: [] for lib_name in order}
         for lib_name in order + order[::-1]:
-            fn = _k8_launcher(libs[lib_name], args, extents=lib_name == "baseline")
+            fn = _k8_launcher(libs[lib_name], args)
             times[lib_name].append(_graph_time(lambda: rs.riccati_sweep(*fn(), reg), reps=20)
                                    * 1e3)
         print(f"[K8] designs {_k8_shape(dtype, horizon, batch)}, K8 then K1 on its outputs, in "
@@ -1567,7 +1719,7 @@ def phase_convex(device):
     sol = plain(convex_mpc.build_fleet_problem(*inputs, HORIZON))
     plain_fz = sol.us[0].reshape(4, 3, b)[:, 2].sum(0).mean().item()
     step = _sync_time(lambda: ctrl(*inputs))
-    print(f"[convex] f32 B={b}: K1 and K2 launches {per_solve} each, mean Σfz {mean_fz:.4f} N "
+    print(f"[convex] f32 B={b}: K1, K2 and K8 launches {per_solve} each, mean Σfz {mean_fz:.4f} N "
           f"(the same solve with the plain line search: {plain_fz:.4f} N; weight "
           f"{GO1_WEIGHT_N:.2f} ± 10), mean cost {cost.mean().item():.5f}, step p50 "
           f"{step * 1e3:.3f} ms, {b / step:,.0f} solves/s")
@@ -2444,9 +2596,8 @@ def _counted(fn, what, want_k1, want_k2, path=None, instantiation="quat_srb_midp
     """fn() with the kernels' counts set to 0 just before and read just
     after: exactly ``want_k1`` K1 and ``want_k2`` K2 launches (al x ilqr for
     a solve of a model K2 has, 0 for the bicycle's), no K4, and as many K8
-    launches as K2's on the quaternion SRB (`_k8_want`: none on another
-    model); ``path`` names the K2 launches of ``instantiation`` and the K8
-    launches in the kernels line. Returns (fn's result, the K1 count as
+    launches as K2's (every model K2 has, K8 has); ``path`` names the K2 and
+    K8 launches of ``instantiation`` in the kernels line. Returns (fn's result, the K1 count as
     read)."""
     from quaternion_mpc_tpu_torch.kernels import assoc_scan as k4
     from quaternion_mpc_tpu_torch.kernels import line_search as k2
@@ -2458,7 +2609,7 @@ def _counted(fn, what, want_k1, want_k2, path=None, instantiation="quat_srb_midp
     torch.cuda.synchronize()
     got = (rs.riccati_sweep.launches, k4.assoc_backward.launches, k4.assoc_scan.launches,
            k2.line_search.launches, _k8().launches)
-    want = (want_k1, 0, 0, want_k2, _k8_want(want_k2, instantiation))
+    want = (want_k1, 0, 0, want_k2, want_k2)
     _check(got == want,
            f"{what}: (K1, assoc_backward, assoc_scan, K2, K8) launches {got}, expected {want}")
     if path is not None:
@@ -2596,6 +2747,12 @@ CAT_TORQUE_NEAR, CAT_TORQUE_CEILING = 8.2, 10.0
 # no start up to CAT_VOUCHED_DEG may run away, a steeper one either meets
 # every bound or is far off the sphere, and few are.
 CAT_VOUCHED_DEG = 160.0
+# The falling_cat fleet's figures with the plain expansions (PR 15-17 on an
+# H100): its starts of at most CAT_VOUCHED_DEG that hold (all 3,281 of the
+# seed's), and the starts that run away in f32 and in f64; printed beside
+# this run's, not held.
+CAT_PARENT = {"source": "PR 15 W1, PR 17 F1", "quality": 3281, "f32": [626, 2610, 2616],
+              "f64": [626, 2739, 3174, 3925]}
 CAT_FAR_OFF = 10.0  # a runaway's |q|; between 1.005 and this a start fails
 CAT_MAX_RUNAWAYS = 0.002  # of the fleet
 
@@ -2632,11 +2789,11 @@ def _hold_cat_fleet(sol, prob, what, torque_ceiling):
 def phase_cat_fleet(device, smi):
     """A falling_cat fleet, B=4096, f32, N=40, 3 AL x 25 iLQR, 12 alphas:
     starts at 100-175 degrees about seeded axes. One counted warm-up solve
-    (exactly 75 K1 and 75 K2 launches, K2's attitude instantiation), p50 /
-    min / max of 3 more, the quality of the
-    fleet's optimum and of one f64 solve of the same starts, and K1 alone at
-    this shape beside the function's bound at its own size.
-    Returns a dict for the kernels line."""
+    (exactly 75 K1, 75 K2 and 75 K8 launches, K2's and K8's attitude
+    instantiations), p50 / min / max of 3 more, the quality of the fleet's
+    optimum and of one f64 solve of the same starts (printed beside the
+    parent's figures, CAT_PARENT), and K1 alone at this shape beside the
+    function's bound at its own size. Returns a dict for the kernels line."""
     from quaternion_mpc_tpu_torch import examples
     from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
     from quaternion_mpc_tpu_torch.solver import al_ilqr
@@ -2655,8 +2812,8 @@ def phase_cat_fleet(device, smi):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     p50 = statistics.median(times)
-    print(f"[single] falling_cat fleet f32 B={b}, N=40, 3x25, 12 alphas: K1 and K2 launches "
-          f"{k1_launches} and {per_solve} a solve, no K4; p50 {p50 * 1e3:.1f} ms (min {min(times) * 1e3:.1f}, max "
+    print(f"[single] falling_cat fleet f32 B={b}, N=40, 3x25, 12 alphas: K1, K2 and K8 launches "
+          f"{k1_launches}, {per_solve} and {per_solve} a solve, no K4; p50 {p50 * 1e3:.1f} ms (min {min(times) * 1e3:.1f}, max "
           f"{max(times) * 1e3:.1f}; 3 solves after 1 warm-up), {b / p50:,.0f} solves/s; {smi}")
     # Quality: the gate of `_hold_cat_fleet`, on the f32 fleet and on one f64
     # solve of the same starts (the reference's bounds for its one start are
@@ -2691,6 +2848,11 @@ def phase_cat_fleet(device, smi):
           f"{int(sol.stats.iterations.min())}-{int(sol.stats.iterations.max())} of {per_solve}")
     _check(over_near <= 0.02 * b,
            f"falling_cat fleet f32: {over_near} starts above a torque of {CAT_TORQUE_NEAR}")
+    quality = int((held & (angle <= CAT_VOUCHED_DEG)).sum())
+    print(f"[single] falling_cat fleet beside the parent's (the plain expansions; "
+          f"{CAT_PARENT['source']}): starts of at most {CAT_VOUCHED_DEG:g} degrees that hold "
+          f"{quality} (parent {CAT_PARENT['quality']}), runaway starts f32 {away} (parent "
+          f"{CAT_PARENT['f32']}), f64 {away64} (parent {CAT_PARENT['f64']})")
     del sol64, prob64
     # A whole solve is ~75 iterations of one body; its trace would hold half a
     # million kernel records. The profiled solve is 1 AL x 5 iLQR of the same
@@ -4375,13 +4537,23 @@ def phase_k7_kernels_only(device, baseline):
 
 
 
+# The stack frame K8's Euler SRB instantiations may keep, in bytes: the
+# accurate sine's and cosine's slow path (an argument beyond ~1e5 radians,
+# which a yaw never reaches) reduces it through a small local array, as in
+# torch.sin and torch.cos, whose bits the instantiations keep; no other
+# instantiation keeps one.
+K8_STACK = {"euler_srb_midpoint": 40, "euler_srb_euler": 40}
+
+
 def _print_ptxas(kbuild, rs, k4, libs):
     """What ptxas reported of each kernel; K1, and K4 in f32, must keep their
     working sets out of local memory (K4 in f64 is reported); K7 must not
     spill in f32 or f64, nor K2's 52 kernels (f32 and f64, one or two lanes an
     alpha: the quaternion SRB and the Euler SRB under the midpoint rule and
-    forward Euler at one to four feet, the attitude model), nor K8's 8 (f32
-    and f64 at one to four feet), which keep no stack either."""
+    forward Euler at one to four feet, the attitude model), nor K8's 26 (f32
+    and f64: the quaternion SRB, the Euler SRB under the midpoint rule and
+    forward Euler at one to four feet, the attitude model), which keep no
+    stack either but for the Euler SRB's sine and cosine (`K8_STACK`)."""
     for lib in libs:
         for k in kbuild.ptxas_report(lib):
             print(f"[build] ptxas {lib.name.rsplit('_', 1)[0]} {k['name'][-40:]}: {k['registers']} "
@@ -4406,9 +4578,11 @@ def _print_ptxas(kbuild, rs, k4, libs):
     _check(len(k2_report) == 52 and all(k["stores"] == k["loads"] == 0 for k in k2_report),
            f"K2 spills or ptxas reported other kernels than its 52: {k2_report}")
     k8_report = kbuild.ptxas_report(libs[4])
-    _check(len(k8_report) == 8
-           and all(k["stack"] == k["stores"] == k["loads"] == 0 for k in k8_report),
-           f"K8 spills (f32 or f64) or ptxas reported other kernels than its 8: {k8_report}")
+    stack = lambda k: K8_STACK.get(_k8_kernel(k["name"])[0], 0)
+    _check(len(k8_report) == 26
+           and all(k["stores"] == k["loads"] == 0 and k["stack"] <= stack(k) for k in k8_report),
+           f"K8 spills (f32 or f64), keeps a stack, or ptxas reported other kernels than its 26: "
+           f"{k8_report}")
 
 
 def main(argv) -> int:
@@ -4424,7 +4598,7 @@ def main(argv) -> int:
     worker = argv[1] if len(argv) == 2 and argv[0] == "--worker" and argv[1] in workers else None
     if argv and not (kernels_only or worker or hardware_only):
         print("usage: chip_smoke.py [--kernels-only [--k7-baseline SOURCE] [--k2-baseline SOURCE] "
-              "[--k8-baseline SOURCE] "
+              "[--k8-baseline SOURCE[,SOURCE...]] "
               "| --hardware-only | "
               "--worker "
               f"{{{','.join(workers)}}}]", file=sys.stderr)
@@ -4706,35 +4880,42 @@ def main(argv) -> int:
         **(dict(convex_step_ms=convex_step * 1e3) if inst == "euler_srb_midpoint" else {}),
         **(dict(falling_cat_fleet_solve_ms=cat["p50"] * 1e3) if inst == "attitude_midpoint"
            else {}),
-    } for inst in K2_MAIN_OF), {
-        "name": "expansions",
+    } for inst in K2_MAIN_OF), *({
+        "name": "expansions" if inst == "quat_srb_midpoint" else f"expansions[{inst}]",
         "route": "cuda",
         "source": "quaternion_mpc_tpu_torch/csrc/expansions.cu",
         "replaces": "quaternion_mpc_tpu/solver/fleet.py:642",
+        "instantiation": inst,
         "design": ("a block a knot and 32 scenarios, its warps the knot's pieces (As, Bs, the "
                    "state cost, the AL terms, luu a few rows a warp after a barrier), the "
                    "terminal knot a tile a warp; shared leaves staged in shared memory; every "
-                   "element of the dense slabs written from registers in the blocks' form of "
-                   "SrbEdjBlocks; batch-first parameters read in place; -fmad=false"),
-        # every counted path of this process, each driven with the counts set
-        # to 0 just before and read just after: al x ilqr a solve or tick of
-        # the quaternion SRB, 0 on the convex and falling_cat paths
-        "launches": sum(K8_LAUNCHES.values()),
-        "launches_by_path": dict(K8_LAUNCHES),
-        "max_abs_err": k8_main_abs,
+                   "element of the dense slabs written from registers; batch-first parameters "
+                   "read in place; -fmad=false; the model a template argument"),
+        # every counted path of this process that runs this instantiation,
+        # each driven with the counts set to 0 just before and read just
+        # after: al x ilqr a solve or tick, as K2's
+        "launches": sum(K8_LAUNCHES.get(inst, {}).values()),
+        "launches_by_path": dict(K8_LAUNCHES.get(inst, {})),
+        "max_abs_err": k8_main_abs[inst],
         "max_rel_err_over_checked_shapes": k8_worst,
-        "ms": expansions_times[_k8_shape(*K8_TIMED[0])]["ms"],
-        "plain_ms": expansions_times[_k8_shape(*K8_TIMED[0])]["plain_ms"],
-        "bound_ms": expansions_times[_k8_shape(*K8_TIMED[0])]["bound_ms"],
-        "bound_by": expansions_times[_k8_shape(*K8_TIMED[0])]["bound_by"],
+        "ms": expansions_times[K8_MAIN_OF[inst]]["ms"],
+        "plain_ms": expansions_times[K8_MAIN_OF[inst]]["plain_ms"],
+        "bound_ms": expansions_times[K8_MAIN_OF[inst]]["bound_ms"],
+        "bound_by": expansions_times[K8_MAIN_OF[inst]]["bound_by"],
         "library_ms": None,
         "library": "no single PyTorch call computes these expansions",
-        "shape": _k8_shape(*K8_TIMED[0]),
-        "by_shape": expansions_times,
-        "registers": _k8_registers(kbuild, libs[4]),
-        "fleet_step_profile_B4096": step_profile,
-        "hardware_tick_replay_device_ops": hw["tick"]["replay_profile"]["device_ops"],
-    }]}))
+        "shape": K8_MAIN_OF[inst],
+        "by_shape": {tag: t for tag, t in expansions_times.items()
+                     if K8_MODEL.get(tag.split(" ")[0], "quat_srb_midpoint") == inst},
+        "registers": {k: v for k, v in _k8_registers(kbuild, libs[4]).items()
+                      if k.startswith(inst)},
+        **(dict(fleet_step_profile_B4096=step_profile,
+                hardware_tick_replay_device_ops=hw["tick"]["replay_profile"]["device_ops"])
+           if inst == "quat_srb_midpoint" else {}),
+        **(dict(convex_step_ms=convex_step * 1e3) if inst == "euler_srb_midpoint" else {}),
+        **(dict(falling_cat_fleet_solve_ms=cat["p50"] * 1e3) if inst == "attitude_midpoint"
+           else {}),
+    } for inst in K8_MAIN_OF)]}))
     print(f"[done] wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

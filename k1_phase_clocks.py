@@ -1,6 +1,5 @@
 """Where K1 (the fleet Riccati sweep), K4 (the associative-scan backward
-pass) and K8 (the quaternion SRB's knot expansions) spend their clocks on
-the card.
+pass) and K8 (the knot expansions) spend their clocks on the card.
 
     python3 k1_phase_clocks.py          # all three
     python3 k1_phase_clocks.py k1       # or k4, or k8
@@ -26,27 +25,21 @@ K8: builds `csrc/expansions.cu` with -DK8_PHASE_CLOCKS, which makes lane 0
 of every warp of one stage block (knot N/2, the middle tile) stamp clock64()
 as its piece goes (the knot's pieces are warps: As, Bs, the state cost, the
 AL rows over the rest; then luu's rows and lu's over all of them), launches
-it on the fleet's first expansions (f32) at K8_SHAPES and prints each warp's
-clocks: staging and the barrier after it, computing, storing, the wait at
-the barrier that hands on λ̄ and the active rows, summing its rows of luu
-and lu and storing them. With
-`--k8-baseline OLD.cu` (the previous design, a thread per (knot, scenario),
-from its source) it also builds a copy of that source with stamps put in at
-its phases (the dynamics to As, As's stores, Bs, the state cost, c / λ̄ /
-Cuᵀλ̄, lu's stores, luu) for thread 0 of the same knot's middle block, and
-prints those.
+it on each instantiation's first expansions (f32) at K8_SHAPES (the
+quaternion SRB's hardware tick and fleet step, the convex fleet's, the
+convex fixture's, the falling_cat fleet's) and prints each warp's clocks:
+staging and the barrier after it, computing, storing, the wait at the
+barrier that hands on λ̄ and the active rows, summing its rows of luu and lu
+and storing them.
 
 A stamp itself costs clocks (two stamps back to back are printed), so read
 the phases against each other, not as absolute times; a kernel's time is
 `chip_smoke.py`'s. Needs one CUDA card; exits 1 without.
-
-    python3 k1_phase_clocks.py k8 --k8-baseline OLD.cu
 """
 
 from __future__ import annotations
 
 import ctypes
-import pathlib
 import subprocess
 import sys
 
@@ -124,129 +117,68 @@ def k4_clocks(device) -> None:
             segment = []
 
 
-# K8: (N, B), f32: the hardware tick's and the fleet step's
-K8_SHAPES = ((6, 1), (10, 4096))
-# the new body's stamps a warp (csrc/expansions.cu K8_STAMP): what ends at each
+# K8: (problem, N, B), f32: the quaternion SRB's hardware tick and fleet
+# step, the convex fleet's (the Euler SRB, midpoint rule), the convex
+# fixture's (forward Euler), the falling_cat fleet's (the attitude model)
+K8_SHAPES = (("standing", 6, 1), ("standing", 10, 4096), ("convex", 10, 4096),
+             ("convex_fixture", 30, 256), ("falling_cat", 40, 4096))
+# the stamps a warp (csrc/expansions.cu K8_STAMP): what ends at each
 K8_SLOTS = ("staging and its barrier", "computing", "storing", "wait at the barrier",
             "summing (luu's rows, lu)", "storing them")
 K8_PIECES = ("As", "Bs", "state cost")
-# the previous body: a stamp after each phase of a stage knot's thread
-K8_OLD_PHASES = ("dynamics to As", "As stored", "Bs", "state cost", "c, λ̄, Cuᵀλ̄", "lu stored",
-                 "luu")
-# where the stamps go in the previous body's source (csrc/expansions.cu at 6aeae75):
-# (text, the text that replaces it)
-K8_OLD_STAMPS = (
-    ('#include "batch_last.cuh"\n',
-     '#include "batch_last.cuh"\n__device__ long long k8_clocks[16];\n'
-     '__device__ int k8_clock_block = -1;\n#define OLD_STAMP(i) do { if ((int)blockIdx.x == '
-     'k8_clock_block && threadIdx.x == 0) k8_clocks[i] = clock64(); } while (0)\n'),
-    ("  const Slab<T> As{a.out[AS]", "  OLD_STAMP(1);\n  const Slab<T> As{a.out[AS]"),
-    ("  const Slab<T> Bs{a.out[BS]", "  OLD_STAMP(2);\n  const Slab<T> Bs{a.out[BS]"),
-    ("  const Col<T> u_ref = column(a.in[IN_U_REF], b), Rd",
-     "  OLD_STAMP(4);\n  const Col<T> u_ref = column(a.in[IN_U_REF], b), Rd"),
-    ("  const Slab<T> lu{a.out[LUS]", "  OLD_STAMP(5);\n  const Slab<T> lu{a.out[LUS]"),
-    ("  const Slab<T> luu{a.out[LUUS]", "  OLD_STAMP(6);\n  const Slab<T> luu{a.out[LUUS]"),
-    ("    dynamics<T, NF>(a, k, b);\n    stage_cost<T, NF>(a, k, b);\n",
-     "    OLD_STAMP(0);\n    dynamics<T, NF>(a, k, b);\n    OLD_STAMP(3);\n"
-     "    stage_cost<T, NF>(a, k, b);\n    OLD_STAMP(7);\n"),
-)
-K8_OLD_API = """
-extern "C" int expansions_clock_block(int block) {
-  static const long long zeros[16] = {};
-  cudaError_t err = cudaMemcpyToSymbol(k8_clocks, zeros, sizeof(zeros));
-  if (err == cudaSuccess) err = cudaMemcpyToSymbol(k8_clock_block, &block, sizeof(int));
-  return static_cast<int>(err);
-}
-extern "C" int expansions_clocks(long long* out, int n) {
-  return static_cast<int>(cudaMemcpyFromSymbol(out, k8_clocks, sizeof(long long) * n));
-}
-"""
 
 
-def _k8_clock_lib(path):
-    from quaternion_mpc_tpu_torch.kernels import expansions as k8
-
-    lib = k8.bind(path)
-    lib.expansions_clock_block.argtypes = [ctypes.c_int]
-    lib.expansions_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    lib.expansions_clock_block.restype = lib.expansions_clocks.restype = ctypes.c_int
-    return lib
-
-
-def k8_clocks(device, baseline=None) -> None:
+def k8_clocks(device) -> None:
     import chip_smoke
     from quaternion_mpc_tpu_torch.kernels import build as kbuild
     from quaternion_mpc_tpu_torch.kernels import expansions as k8
 
-    libs = {"new": _k8_clock_lib(kbuild.build(k8.SOURCE, k8.FLAGS + ("-DK8_PHASE_CLOCKS",)))}
-    if baseline:
-        text = pathlib.Path(baseline).read_text()
-        for old, new in K8_OLD_STAMPS:
-            if text.count(old) != 1:
-                raise ValueError(f"{baseline}: {old!r} is not there exactly once")
-            text = text.replace(old, new)
-        copy = kbuild.BUILD_DIR / "expansions_previous_clocks.cu"
-        kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        copy.write_text(text + K8_OLD_API)
-        libs["previous"] = _k8_clock_lib(kbuild.build(copy, k8.FLAGS))
-    for horizon, batch in K8_SHAPES:
-        args = chip_smoke._k8_inputs("standing", horizon, batch, torch.float32, device)
+    lib = k8.bind(kbuild.build(k8.SOURCE, k8.FLAGS + ("-DK8_PHASE_CLOCKS",)))
+    lib.expansions_clock_block.argtypes = [ctypes.c_int]
+    lib.expansions_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.expansions_clock_block.restype = lib.expansions_clocks.restype = ctypes.c_int
+    for name, horizon, batch in K8_SHAPES:
+        args = chip_smoke._k8_inputs(name, horizon, batch, torch.float32, device)
         want = k8.knot_expansions(*args)
-        for name, lib in libs.items():
-            previous = name == "previous"
-            tiles = -(-batch // (128 if previous else 32))
-            block = (horizon // 2) * tiles + tiles // 2
-            if lib.expansions_clock_block(block) != 0:
-                raise RuntimeError("setting the stamping block failed")
-            launch = chip_smoke._k8_launcher(lib, args, extents=previous)
-            for _ in range(3):
-                got = launch()
-            torch.cuda.synchronize()
-            if not all(torch.equal(g, w) for g, w in zip(got, want)):
-                raise AssertionError(f"the instrumented {name} build disagrees with the kernel")
-            stamps = np.zeros(16 if previous else 32 * 8, dtype=np.int64)
-            if lib.expansions_clocks(stamps.ctypes.data, len(stamps)) != 0:
-                raise RuntimeError("reading the stamps failed")
-            tag = f"[clocks] K8 {name} f32 N={horizon} B={batch} block {block}"
-            if previous:
-                d = np.diff(stamps[:8])
-                print(f"{tag}, thread 0: {stamps[7] - stamps[0]} clocks a stage knot: "
-                      + ", ".join(f"{p} {c}" for p, c in zip(K8_OLD_PHASES, d)))
-                continue
-            rows = stamps.reshape(32, 8)
-            start = rows[0, 0]
-            warps = [w for w in range(32) if rows[w, 0] != 0]
-            end = max(int(rows[w].max()) for w in warps)
-            print(f"{tag}: {end - start} clocks from warp 0's first stamp to the block's last; "
-                  f"by warp (clocks a part: {', '.join(K8_SLOTS)}):")
-            for w in warps:
-                r = rows[w]
-                piece = K8_PIECES[w] if w < len(K8_PIECES) else f"AL rows {w - len(K8_PIECES)}"
-                # slots 0 start, 1 staged, 2 computed, 3 piece done, 4 barrier,
-                # 5 luu summed, 6 luu stored; a part a warp has not: -
-                parts = [(r[1] - r[0]), (r[2] - r[1]) if r[2] else None,
-                         (r[3] - r[2]) if r[2] else None, r[4] - r[3],
-                         (r[5] - r[4]) if r[5] else None, (r[6] - r[5]) if r[6] else None]
-                if not r[2]:
-                    parts[1] = r[3] - r[1]
-                print(f"[clocks]   {piece}: " + ", ".join(
-                    "-" if c is None else str(int(c)) for c in parts)
-                    + f" (starts {int(r[0] - start)} after warp 0)")
+        tiles = -(-batch // 32)
+        block = (horizon // 2) * tiles + tiles // 2
+        if lib.expansions_clock_block(block) != 0:
+            raise RuntimeError("setting the stamping block failed")
+        launch = chip_smoke._k8_launcher(lib, args)
+        for _ in range(3):
+            got = launch()
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("the instrumented build disagrees with the kernel")
+        stamps = np.zeros(32 * 8, dtype=np.int64)
+        if lib.expansions_clocks(stamps.ctypes.data, len(stamps)) != 0:
+            raise RuntimeError("reading the stamps failed")
+        rows = stamps.reshape(32, 8)
+        start = rows[0, 0]
+        warps = [w for w in range(32) if rows[w, 0] != 0]
+        end = max(int(rows[w].max()) for w in warps)
+        print(f"[clocks] K8 {chip_smoke.K8_MODEL[name]} {name} f32 N={horizon} B={batch} block "
+              f"{block}: {end - start} clocks from warp 0's first stamp to the block's last; "
+              f"by warp (clocks a part: {', '.join(K8_SLOTS)}):")
+        for w in warps:
+            r = rows[w]
+            piece = K8_PIECES[w] if w < len(K8_PIECES) else f"AL rows {w - len(K8_PIECES)}"
+            # slots 0 start, 1 staged, 2 computed, 3 piece done, 4 barrier,
+            # 5 luu summed, 6 luu stored; a part a warp has not: -
+            parts = [(r[1] - r[0]), (r[2] - r[1]) if r[2] else None,
+                     (r[3] - r[2]) if r[2] else None, r[4] - r[3],
+                     (r[5] - r[4]) if r[5] else None, (r[6] - r[5]) if r[6] else None]
+            if not r[2]:
+                parts[1] = r[3] - r[1]
+            print(f"[clocks]   {piece}: " + ", ".join(
+                "-" if c is None else str(int(c)) for c in parts)
+                + f" (starts {int(r[0] - start)} after warp 0)")
 
 
 def main(argv) -> int:
-    baseline = None
-    if "--k8-baseline" in argv:
-        i = argv.index("--k8-baseline")
-        baseline = argv[i + 1] if i + 1 < len(argv) else None
-        argv = argv[:i] + argv[i + 2:]
-        if baseline is None:
-            print("usage: k1_phase_clocks.py [k1] [k4] [k8 [--k8-baseline SOURCE]]",
-                  file=sys.stderr)
-            return 2
     which = set(argv) or {"k1", "k4", "k8"}
     if not which <= {"k1", "k4", "k8"}:
-        print("usage: k1_phase_clocks.py [k1] [k4] [k8 [--k8-baseline SOURCE]]", file=sys.stderr)
+        print("usage: k1_phase_clocks.py [k1] [k4] [k8]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("k1_phase_clocks: no CUDA device", file=sys.stderr)
@@ -265,7 +197,7 @@ def main(argv) -> int:
     if "k4" in which:
         k4_clocks(device)
     if "k8" in which:
-        k8_clocks(device, baseline)
+        k8_clocks(device)
     if "k1" not in which:
         return 0
     lib = ctypes.CDLL(str(kbuild.build(rs.SOURCE, ("-DK1_PHASE_CLOCKS",))))

@@ -175,6 +175,7 @@ FLEET_MODEL_SPEC = FleetModelSpec(
     fj=euler_srb_jacobian_fleet,
     quat_idx=None,
     line_search="euler_srb",  # K2 (kernels/line_search.py), its midpoint instantiation
+    expansions="euler_srb",  # K8 (kernels/expansions.py): the knot expansions
 )
 
 

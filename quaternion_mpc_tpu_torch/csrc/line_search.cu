@@ -1160,11 +1160,15 @@ inline int multiprocessors() {
 
 template <typename T, typename M, int P>
 int launch_lanes(const Args<T>& a, void* stream) {
-  // Above 48 KB a block's dynamic shared memory has to be asked for; once.
-  static const cudaError_t allowed = cudaFuncSetAttribute(
-      line_search_kernel<T, M, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(SMEM_LIMIT));
-  if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  // Above 48 KB a block's dynamic shared memory has to be asked for, on
+  // every launch: the attribute is the current card's, and a launch may be
+  // on another card than the last
+  if (a.plan.bytes > (48 << 10)) {
+    const cudaError_t allowed = cudaFuncSetAttribute(
+        line_search_kernel<T, M, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(a.plan.bytes));
+    if (allowed != cudaSuccess) return static_cast<int>(allowed);
+  }
   line_search_kernel<T, M, P><<<a.plan.blocks, a.plan.threads, a.plan.bytes,
                                 static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());

@@ -57,6 +57,9 @@ attitude_dynamics = single_view(attitude_dynamics_fleet)
 # the tag of the model in K2 (kernels/line_search.py), which runs its line
 # search under the midpoint rule
 attitude_dynamics.line_search = "attitude"
+# K8's tag (kernels/expansions.py): its knot expansions of a spec that
+# differentiates the model (no fj), under the midpoint rule
+attitude_dynamics.expansions = "attitude"
 
 
 def torque_box(tau_max: float, *, dtype: torch.dtype, device=None):

@@ -423,3 +423,6 @@ quat_srb_dynamics.expansions = "quat_srb"
 euler_srb_dynamics = single_view(euler_srb_dynamics_fleet)
 euler_srb_dynamics.line_search = "euler_srb"  # midpoint rule and forward Euler
 euler_srb_jacobian = single_view(euler_srb_jacobian_fleet)
+# K8's tag: its knot expansions of a spec whose Jacobian is euler_srb_jacobian
+# (midpoint rule and forward Euler)
+euler_srb_dynamics.expansions = "euler_srb"

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from quaternion_mpc_tpu_torch.kernels import expansions as _k8
 from quaternion_mpc_tpu_torch.kernels import line_search as _k2
 from quaternion_mpc_tpu_torch.models import fleet_form, params_to_fleet
 from quaternion_mpc_tpu_torch.solver.fleet import (
@@ -52,11 +53,19 @@ def fleet_spec(spec: ModelSpec) -> FleetModelSpec:
     Euler SRB, the attitude model) keeps its tag where K2 has an
     instantiation for the spec's integrator (`kernels.line_search.
     instantiation`); a model tagged for K8 (``f.expansions``: the quaternion
-    SRB) keeps that tag where the spec keeps its structured Jacobian."""
+    SRB, the Euler SRB, the attitude model) keeps that tag where K8 has an
+    instantiation for the spec's integrator and the spec asks for the
+    Jacobian K8 computes (`kernels.expansions.jacobian_is_the_models`: the
+    quaternion SRB's structured one, `euler_srb_jacobian`, the attitude
+    model's derivative by autodiff)."""
     midpoint = spec.integrator == "midpoint"
     structured = midpoint and spec.fj is not None
     edj = getattr(spec.f, "edj", None) if structured else None
     tag = getattr(spec.f, "line_search", None)
+    k8 = getattr(spec.f, "expansions", None)
+    if not (_k8.instantiation(k8, spec.integrator)
+            and _k8.jacobian_is_the_models(k8, spec.fj, edj)):
+        k8 = None
     return FleetModelSpec(
         nx=spec.nx,
         nu=spec.nu,
@@ -66,7 +75,7 @@ def fleet_spec(spec: ModelSpec) -> FleetModelSpec:
         edj=edj,
         integrator=spec.integrator,
         line_search=tag if _k2.instantiation(tag, spec.integrator) else None,
-        expansions=None if edj is None else getattr(spec.f, "expansions", None),
+        expansions=k8,
     )
 
 

@@ -17,7 +17,8 @@ what the single-problem interface (`solver.al_ilqr`) needs of this solver.
 A problem that names none of them runs the code it ran without them.
 
 The backward pass is the expansions (`knot_expansions` + `terminal_expansion`,
-or for a spec tagged ``expansions`` "quat_srb" the K8 CUDA kernel
+or for a spec tagged ``expansions`` with a model K8 has an instantiation of,
+"quat_srb", "euler_srb" or "attitude", the K8 CUDA kernel
 `kernels.expansions`, which computes both in one launch) + either the
 K1 CUDA sweep (`kernels.riccati_sweep`, the structure of the reference's
 Pallas backend, experiments/pallas_fleet.py riccati_backward_pallas) or the
@@ -136,10 +137,15 @@ class FleetModelSpec(NamedTuple):
          rule or forward Euler) or "attitude" (falling_cat's attitude model,
          midpoint rule); `solver.al_ilqr.fleet_spec` sets it only where that
          instantiation exists
-    expansions: the model's tag in K8 (`kernels.expansions`), which then
-         computes the backward pass's knot expansions of a problem without
-         state rows Cx, or None for the plain version: "quat_srb" (the
-         quaternion SRB's structured `edj`, midpoint rule)
+    expansions: the model's tag in K8 (`kernels.expansions`), whose
+         instantiation for the spec's integrator then computes the backward
+         pass's knot expansions of a problem without state rows Cx, or None
+         for the plain version: "quat_srb" (the quaternion SRB's structured
+         `edj`, midpoint rule), "euler_srb" (the Euler SRB with its
+         `euler_srb_jacobian`, midpoint rule or forward Euler) or "attitude"
+         (the attitude model differentiated, midpoint rule);
+         `solver.al_ilqr.fleet_spec` sets it only where that instantiation
+         exists and the spec asks for the Jacobian it computes
     """
 
     nx: int

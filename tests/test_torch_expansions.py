@@ -10,8 +10,14 @@ every leaf per scenario), the golden standing fixture lifted as `make_solver`
 lifts it with a terminal weight Qdf and a per-knot geodesic weight w (the
 reference's fleet functions take one w for the horizon, so that case is
 composed from its `error_discrete_jac`, `cost_expansion` and
-`terminal_expansion` knot by knot), and the two-footed humanoid. The
-multipliers are drawn so that some inequality rows are active and some not.
+`terminal_expansion` knot by knot), the two-footed humanoid, and K8's other
+models: the convex fleet controller's problem (the Euler SRB, midpoint rule,
+the reference's `convex_mpc._fleet_spec()`), the golden convex fixture
+(forward Euler, leaves shared along B) and a falling_cat fleet (the
+attitude model with per-knot w and Qdf; the reference's spec built here as
+a `jax.vmap` of its `attitude_dynamics`, differentiated by its own
+`jax.jacfwd`). The multipliers are drawn so that some inequality rows are
+active and some not.
 
 `models.srb.quat_srb_edj_blocks` and `solver.fleet._structured_q_terms`
 against the reference's at 1e-12, the blocks placed against the dense
@@ -20,9 +26,13 @@ the Q-terms against the dense AᵀVxxA, BᵀVxxB and BᵀVxxA products (mirrorin
 the reference's tests/test_fleet_solver.py:67-109).
 
 Then the tags: the quaternion SRB's specs with its structured Jacobian carry
-"quat_srb", every other spec none; a problem with state rows Cx keeps the
-plain expansions; a tagged solve calls K8's wrapper once an iLQR iteration
-under the sweep and the scan, an untagged one never; and the wrapper's own
+"quat_srb", the Euler SRB's with `euler_srb_jacobian` "euler_srb" (midpoint
+rule and forward Euler), the attitude model's differentiated under the
+midpoint rule "attitude"; a spec of those models with another Jacobian or
+an integrator K8 has no instantiation for, and the classic systems, none; a
+problem with state rows Cx keeps the plain expansions; a tagged solve of
+each model calls K8's wrapper once an iLQR iteration (the quaternion SRB's
+under the sweep and the scan), an untagged one never; and the wrapper's own
 checks on the CPU."""
 
 import jax
@@ -31,7 +41,10 @@ import numpy as np
 import pytest
 import torch
 
+from quaternion_mpc_tpu.control import convex_mpc as jcv
 from quaternion_mpc_tpu.control import quat_mpc as jq
+from quaternion_mpc_tpu.models import attitude as jattitude
+from quaternion_mpc_tpu.models import discretize as jdisc
 from quaternion_mpc_tpu.models import srb as jsrb
 from quaternion_mpc_tpu.solver import fleet as jfl
 from quaternion_mpc_tpu_torch import examples
@@ -39,6 +52,7 @@ from quaternion_mpc_tpu_torch import scenarios as tsc
 from quaternion_mpc_tpu_torch.control import convex_mpc as tcv
 from quaternion_mpc_tpu_torch.control import quat_mpc as tq
 from quaternion_mpc_tpu_torch.kernels import expansions as k8
+from quaternion_mpc_tpu_torch.models import attitude as tattitude
 from quaternion_mpc_tpu_torch.models import classic as tclassic
 from quaternion_mpc_tpu_torch.models import srb as tsrb
 from quaternion_mpc_tpu_torch.solver import al_ilqr as tal
@@ -64,26 +78,57 @@ def _j(t):
 
 def _jax_problem(prob):
     """The reference's FleetProblem with the port's leaves (it has no Cx)."""
-    params = jsrb.SrbParams(*(_j(getattr(prob.params, f)) for f in jsrb.SrbParams._fields))
+    kind = jattitude.AttitudeParams if isinstance(prob.params, tattitude.AttitudeParams) \
+        else jsrb.SrbParams
+    params = kind(*(_j(getattr(prob.params, f)) for f in kind._fields))
     return jfl.FleetProblem(**{f: _j(getattr(prob, f)) for f in jfl.FleetProblem._fields
                                if f != "params"}, params=params)
 
 
-def _jax_spec(nu):
-    """The reference's quaternion-SRB fleet spec with its structured Jacobian."""
-    if nu == 12:
+def _jax_attitude_fleet(x, u, p):
+    """The reference's attitude model over a batch-last fleet: `jax.vmap` of
+    its single form over the last axis of x, u and the inertia (B or 1)."""
+    inertia = jnp.broadcast_to(p.inertia, (3, 3, x.shape[-1]))
+    one = lambda x1, u1, i1: jattitude.attitude_dynamics(x1, u1, jattitude.AttitudeParams(i1))
+    return jax.vmap(one, in_axes=(-1, -1, -1), out_axes=-1)(x, u, inertia)
+
+
+def _jax_attitude_jacobian(x, u, p):
+    """Its continuous Jacobian (7, 10, B): `jax.vmap` of the reference's
+    `autodiff_jacobian` (`jax.jacfwd`) of the single form."""
+    inertia = jnp.broadcast_to(p.inertia, (3, 3, x.shape[-1]))
+    fj = jdisc.autodiff_jacobian(jattitude.attitude_dynamics)
+    one = lambda x1, u1, i1: fj(x1, u1, jattitude.AttitudeParams(i1))
+    return jax.vmap(one, in_axes=(-1, -1, -1), out_axes=-1)(x, u, inertia)
+
+
+def _jax_spec(spec):
+    """The reference's fleet spec of the port's: the quaternion SRB's with
+    its structured Jacobian, the Euler SRB's with its approximate Jacobian
+    (`convex_mpc._fleet_spec()` under the midpoint rule), the attitude
+    model's differentiated by `jax.jacfwd`."""
+    if spec.expansions == "euler_srb":
+        if spec.integrator == "midpoint":
+            return jcv._fleet_spec()
+        return jfl.FleetModelSpec(nx=12, nu=spec.nu, f=jsrb.euler_srb_dynamics_fleet,
+                                  fj=jsrb.euler_srb_jacobian_fleet, quat_idx=None,
+                                  integrator=spec.integrator)
+    if spec.expansions == "attitude":
+        return jfl.FleetModelSpec(nx=7, nu=3, f=_jax_attitude_fleet, fj=_jax_attitude_jacobian,
+                                  quat_idx=0, integrator=spec.integrator)
+    if spec.nu == 12:
         return jq._fleet_spec()
-    return jfl.FleetModelSpec(nx=13, nu=nu, f=jsrb.quat_srb_dynamics_fleet,
+    return jfl.FleetModelSpec(nx=13, nu=spec.nu, f=jsrb.quat_srb_dynamics_fleet,
                               fj=jsrb.quat_srb_jacobian_fleet, quat_idx=3,
                               edj=jsrb.quat_srb_error_discrete_jac_fleet)
 
 
-def _jax_expansions(nu, prob, xs, us, lam, rho):
+def _jax_expansions(spec, prob, xs, us, lam, rho):
     """The reference's knot expansions and terminal expansion on these
     inputs; with a per-knot w (N+1, B|1) composed knot by knot from its
     `error_discrete_jac` and `cost_expansion`, each knot's w in place of the
     problem's."""
-    spec, jprob = _jax_spec(nu), _jax_problem(prob)
+    spec, jprob = _jax_spec(spec), _jax_problem(prob)
     xs, us, lam = _j(xs), _j(us), _j(lam)
     if jprob.w.ndim == 1:
         knots = jax.jit(jfl.knot_expansions, static_argnums=0)(spec, jprob, xs, us, lam, rho)
@@ -144,12 +189,18 @@ def _assert_near(got, want, what, tol=TOL):
         assert err <= tol, f"{what} {name}: {err:.3g} of scale {scale:.3g}"
 
 
-@pytest.mark.parametrize("name", ["standing", "fixture_qdf_w", "humanoid"])
+# K8's model of each case
+_TAGS = {"standing": "quat_srb", "fixture_qdf_w": "quat_srb", "humanoid": "quat_srb",
+         "convex": "euler_srb", "convex_fixture": "euler_srb", "falling_cat": "attitude"}
+
+
+@pytest.mark.parametrize("name", ["standing", "fixture_qdf_w", "humanoid", "convex",
+                                  "convex_fixture", "falling_cat"])
 def test_plain_expansions_match_jax(name):
     spec, prob, xs, us, lam, rho = _case(name)
-    assert spec.expansions == "quat_srb"
+    assert spec.expansions == _TAGS[name]
     got = k8.knot_expansions(spec, prob, xs, us, lam, rho)
-    want = _jax_expansions(spec.nu, prob, xs, us, lam, float(rho))
+    want = _jax_expansions(spec, prob, xs, us, lam, float(rho))
     _assert_near(got, want, name)
     # the multipliers leave some rows active and some not
     z = lam + rho * tfl.constraint_values(prob, xs, us)
@@ -167,7 +218,7 @@ def test_plain_expansions_hold_ties_and_shared_leaves():
     lam = torch.zeros((20, prob.cb.shape[-2], 4), dtype=F64)
     rho = torch.tensor(1.0, dtype=F64)
     got = k8.knot_expansions(spec, prob, xs, us, lam, rho)
-    _assert_near(got, _jax_expansions(12, prob, xs, us, lam, 1.0), "ties")
+    _assert_near(got, _jax_expansions(spec, prob, xs, us, lam, 1.0), "ties")
     # foot 0's rows at 0 (the four pyramid rows and −fz) are active, fz − fz_max
     # not: luu's fz entry is Rd + 4·μ² + 1
     assert float(got[5][0, 2, 2, 1]) == pytest.approx(1e-6 + 4 * 0.6**2 + 1.0, rel=1e-12)
@@ -244,13 +295,21 @@ def test_structured_q_terms_match_jax_and_the_dense_products(name):
 
 
 def test_specs_carry_the_expansions_tag():
-    """The quaternion SRB's specs that keep its structured Jacobian carry
-    "quat_srb": the fleet controller's, and `fleet_spec` of its ModelSpec
-    under the midpoint rule (the make_solver fixtures, humanoid, spider_dog);
-    the same model under forward Euler, or without fj, has no structured
-    Jacobian and no tag; the convex, attitude and classic specs none."""
+    """Each spec carries its model's tag where K8 has an instantiation for
+    its integrator and the spec asks for the Jacobian K8 computes: the
+    quaternion SRB's specs that keep its structured Jacobian "quat_srb" (the
+    fleet controller's, and `fleet_spec` of its ModelSpec under the midpoint
+    rule: the make_solver fixtures, humanoid, spider_dog); the Euler SRB's
+    with `euler_srb_jacobian` "euler_srb" (the convex fleet controller's, the
+    single convex controller's, the convex fixture's under forward Euler);
+    the attitude model's, differentiated, under the midpoint rule
+    "attitude" (falling_cat). None: the quaternion SRB under forward Euler,
+    or without fj (no structured Jacobian); the Euler SRB differentiated (no
+    fj) or with another fj; the attitude model with an fj of its own, or
+    under forward Euler; the classic systems."""
     assert tq.FLEET_MODEL_SPEC.expansions == "quat_srb"
-    assert tcv.FLEET_MODEL_SPEC.expansions is None
+    assert tcv.FLEET_MODEL_SPEC.expansions == "euler_srb"
+    assert tal.fleet_spec(tcv.MODEL_SPEC).expansions == "euler_srb"
     quat = dict(f=tsrb.quat_srb_dynamics, fj=tsrb.quat_srb_jacobian, quat_idx=3)
     assert tal.fleet_spec(ModelSpec(nx=13, nu=12, **quat)).expansions == "quat_srb"
     assert tal.fleet_spec(ModelSpec(nx=13, nu=12, **quat, integrator="euler")).expansions is None
@@ -258,10 +317,20 @@ def test_specs_carry_the_expansions_tag():
                                     quat_idx=3)).expansions is None
     for name in ("humanoid", "spider_dog", "falling_cat"):
         spec = tal.fleet_spec(tsc.SCENARIOS[name](N=4, dtype=F64, device="cpu")[0])
-        assert spec.expansions == (None if name == "falling_cat" else "quat_srb"), name
+        assert spec.expansions == ("attitude" if name == "falling_cat" else "quat_srb"), name
     for name in ("quat", "trot", "convex"):
         spec = tal.fleet_spec(examples.fixture_problem(name, F64, "cpu")[0])
-        assert spec.expansions == (None if name == "convex" else "quat_srb"), name
+        assert spec.expansions == ("euler_srb" if name == "convex" else "quat_srb"), name
+        if name == "convex":
+            assert k8.instantiation(spec.expansions, spec.integrator) == "euler_srb_euler"
+    euler = dict(nx=12, nu=12, f=tsrb.euler_srb_dynamics, quat_idx=None)
+    assert tal.fleet_spec(ModelSpec(**euler)).expansions is None  # differentiated
+    assert tal.fleet_spec(ModelSpec(**euler, fj=tsrb.quat_srb_jacobian)).expansions is None
+    attitude = dict(nx=7, nu=3, f=tattitude.attitude_dynamics, quat_idx=0)
+    assert tal.fleet_spec(ModelSpec(**attitude)).expansions == "attitude"
+    own_fj = tal.fleet_spec(ModelSpec(**attitude, fj=tattitude.attitude_dynamics))
+    assert own_fj.expansions is None and own_fj.line_search == "attitude"
+    assert tal.fleet_spec(ModelSpec(**attitude, integrator="euler")).expansions is None
     bicycle = ModelSpec(nx=4, nu=2, f=tclassic.bicycle_dynamics)
     assert tal.fleet_spec(bicycle).expansions is None
 
@@ -319,6 +388,64 @@ def test_tagged_solves_call_k8_once_an_iteration(monkeypatch, backend):
         assert len(calls) == 6
 
 
+@pytest.mark.parametrize("problem", ["convex", "convex_fixture", "falling_cat", "pendulum"])
+def test_each_models_solve_calls_k8_once_an_iteration(monkeypatch, problem):
+    """A solve of each of K8's other models calls its wrapper al x ilqr
+    times, and on the CPU gives the plain expansions: the convex fleet
+    controller's 1 x 5 (the Euler SRB, midpoint rule), the golden convex
+    fixture through `make_solver` (forward Euler), a falling_cat fleet
+    through `make_solver` (the attitude model); the pendulum's, untagged,
+    never."""
+    calls = _spy(monkeypatch)
+    batch = 3
+    if problem == "convex":
+        opts = SolverOptions(al_iterations=1, ilqr_iterations=5, max_linesearch=8)
+        fbk, cmd, wts = examples.standing_batch(batch, 6, F64, "cpu", controller="convex")
+        prob = tcv.build_fleet_problem(fbk, cmd, wts, 6)
+        tfl.make_fleet_solver(tcv.FLEET_MODEL_SPEC, opts, backend="sweep")(prob)
+        assert len(calls) == 5
+    elif problem == "convex_fixture":
+        spec, prob = examples.fixture_problem("convex", F64, "cpu")[:2]
+        tal.make_solver(spec, SolverOptions(al_iterations=2, ilqr_iterations=2))(prob)
+        assert len(calls) == 2 * 2
+    elif problem == "falling_cat":
+        spec, prob, _ = examples.falling_cat_fleet(batch, F64, "cpu", N=6)
+        tal.make_solver(spec, SolverOptions(al_iterations=2, ilqr_iterations=3))(prob)
+        assert len(calls) == 2 * 3
+    else:
+        spec, prob = examples.classic_problem("pendulum", 6, F64, "cpu")
+        tal.make_solver(spec, SolverOptions(al_iterations=1, ilqr_iterations=2))(prob)
+        assert not calls
+
+
+@pytest.mark.parametrize("name", ["convex", "convex_fixture", "falling_cat"])
+def test_wrapper_checks_each_models_inputs(name):
+    """K8's table and launch sizes for the Euler SRB (12 states, the feet,
+    inertia and mass, no quaternion) and the attitude model (7 states, 3
+    torques as one group, its inertia alone): the parameters a model has
+    not are absent, the instantiation rides in the flags; a spec of the
+    model with other sizes, and the attitude model with more torques, are
+    refused."""
+    spec, prob, xs, us, lam, rho = _case(name, batch=3, horizon=4)
+    table, (N, B, n_feet, nc, flags) = k8.check_inputs(spec, prob, xs, us, lam, rho)
+    want = {"convex": "euler_srb_midpoint", "convex_fixture": "euler_srb_euler",
+            "falling_cat": "attitude_midpoint"}[name]
+    assert k8.INSTANTIATIONS[flags >> 8] == want and (N, B) == (us.shape[0], 3)
+    absent = [i for i, (t, _) in enumerate(table) if t is None]
+    if name == "falling_cat":
+        assert (n_feet, nc) == (1, 6) and absent == [11, 13, 14, 15, 16]
+        outs = k8.new_outputs((N, B, n_feet, nc, flags), xs)
+        assert [tuple(t.shape) for t in outs[:2]] == [(N, 6, 6, 3), (N, 6, 3, 3)]
+        with pytest.raises(ValueError, match="three torques"):
+            k8.check_inputs(spec._replace(nu=4), prob, xs, us, lam, rho)
+    else:
+        assert (n_feet, nc) == (4, 24) and absent == [14, 15, 16]
+    with pytest.raises(ValueError, match=f"runs '{spec.expansions}' with nx"):
+        k8.check_inputs(spec._replace(nx=spec.nx + 1), prob, xs, us, lam, rho)
+    assert k8.work(spec, prob, xs, us, lam, rho)["flops"] == B * (
+        N * k8.flops_per_knot(want, n_feet, nc) + k8.STATE_FLOPS[spec.expansions])
+
+
 def test_wrapper_checks_its_inputs():
     """What the kernel does not take raises before any launch: another tag
     or model, more than four feet, more than MAX_ROWS rows, a leaf of
@@ -327,8 +454,10 @@ def test_wrapper_checks_its_inputs():
     table, dims = k8.check_inputs(spec, prob, xs, us, lam, rho)
     assert len(table) == k8.INPUTS and dims == (4, 3, 4, 24, 0)
     with pytest.raises(ValueError, match="runs the specs tagged"):
+        k8.check_inputs(spec._replace(expansions="bicycle"), prob, xs, us, lam, rho)
+    with pytest.raises(ValueError, match="runs 'euler_srb' with nx 12"):
         k8.check_inputs(spec._replace(expansions="euler_srb"), prob, xs, us, lam, rho)
-    with pytest.raises(ValueError, match="midpoint"):
+    with pytest.raises(ValueError, match="no instantiation for 'quat_srb' under the 'euler'"):
         k8.check_inputs(spec._replace(integrator="euler"), prob, xs, us, lam, rho)
     with pytest.raises(ValueError, match="float32 or float64"):
         k8.check_inputs(spec, prob, xs.half(), us, lam, rho)

@@ -87,6 +87,9 @@ inline Counted fused(Counted a, Counted b, Counted c) {
   COUNT(2);
   return counted(std::fma(a.v, b.v, c.v));
 }
+// a sine or a cosine: one operation
+inline Counted sin(Counted a) { COUNT(1); return counted(std::sin(a.v)); }
+inline Counted cos(Counted a) { COUNT(1); return counted(std::cos(a.v)); }
 inline bool operator>(Counted a, Counted b) { return a.v > b.v; }
 inline bool operator<(Counted a, Counted b) { return a.v < b.v; }
 inline bool operator>=(Counted a, Counted b) { return a.v >= b.v; }
@@ -96,17 +99,17 @@ inline bool operator>=(Counted a, Counted b) { return a.v >= b.v; }
 template <typename T>
 struct Run {
   Args<T> a;
-  template <int NF>
+  template <typename M>
   int run() {
-    return emulate_blocks(launch_blocks<T, NF>(a), Shape<T, NF>::THREADS,
-                          expansions_kernel<T, NF>, a);
+    return emulate_blocks(launch_blocks<T, M>(a), Shape<T, M>::THREADS,
+                          expansions_kernel<T, M>, a);
   }
 };
 template <typename T>
 static int run(const void* const* in, const long long* ld, void* const* out, int N, int B,
                int n_feet, int nc, int flags) {
   Run<T> fn{make_args<T>(in, ld, out, N, B, nc, flags, 3 * n_feet)};
-  const int err = with_feet(n_feet, fn);
+  const int err = with_model(flags, n_feet, fn);
   return err < 0 ? 2 : err;
 }
 extern "C" int emulated_f32(const void* const* in, const long long* ld, void* const* out, int N,
@@ -180,13 +183,16 @@ def _emulated(lib, spec, prob, xs, us, lam, rho):
     return outputs
 
 
+_OUTPUTS = ("As", "Bs", "lxs", "lxxs", "lus", "luus", "lxN", "lxxN")
+
+
 def _hold(lib, spec, prob, xs, us, lam, rho, what):
     """The emulated kernel against the plain version, each output relative to
     its largest magnitude."""
     got = _emulated(lib, spec, prob, xs, us, lam, rho)
     want = k8.knot_expansions_ref(spec, prob, xs, us, lam, rho)
     rtol = RTOL[xs.dtype]
-    for name, g, w in zip(("As", "Bs", "lxs", "lxxs", "lus", "luus", "lxN", "lxxN"), got, want):
+    for name, g, w in zip(_OUTPUTS, got, want):
         assert g.shape == w.shape, (what, name)
         assert bool(torch.isfinite(g).all()), f"{what} {name}: an element unwritten or not finite"
         scale = float(w.abs().max())
@@ -221,6 +227,8 @@ def test_tables_match_the_wrapper(emulated):
     table = (ctypes.c_int * 3)()
     emulated.expansions_table(table)
     assert tuple(table) == (k8.INPUTS, k8.OUTPUTS, k8.MAX_ROWS)
+    emulated.expansions_tags.restype = ctypes.c_char_p
+    assert tuple(emulated.expansions_tags().decode().split()) == k8.INSTANTIATIONS
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
@@ -314,9 +322,10 @@ def test_flop_count_matches_the_device_code(emulated, n_feet, nc):
     table, dims = k8.check_inputs(spec, prob, xs, us, lam, rho)
     outputs = k8.new_outputs(dims, xs)
     count = emulated.count_flops(*k8.c_tables(table, outputs), *dims)
-    assert count == 3 * k8.flops_per_knot(n_feet, nc) + k8.STATE_FLOPS
+    assert count == 3 * k8.flops_per_knot("quat_srb_midpoint", n_feet, nc) + \
+        k8.STATE_FLOPS["quat_srb"]
     # the Bs piece's own inverse inertia, ½h, ½h², q_m and ½G(q_m), apart
-    assert emulated.count_recomputed() == 3 * k8.RECOMPUTED_FLOPS
+    assert emulated.count_recomputed() == 3 * k8.RECOMPUTED_FLOPS["quat_srb_midpoint"]
     want = k8.knot_expansions_ref(spec, prob, xs, us, lam, rho)
     for g, w in zip(outputs, want):  # the counted run computes the same values
         assert float((g - w).abs().max()) <= 1e-12 * float(w.abs().max())
@@ -330,7 +339,7 @@ _STAGED = ("cb", "Rd", "Qd", "Qdf", "w", "foot_pos", "inertia", "mass", "com_off
            "com_mass", "rot_body_to_world")
 
 
-@pytest.mark.parametrize("case", ["fixture", "mixed"])
+@pytest.mark.parametrize("case", ["fixture", "mixed", "falling_cat"])
 def test_emulated_kernel_stages_the_shared_leaves(emulated, case):
     """A block copies the leaves every scenario shares (batch extent 1) to
     shared memory, and nothing of a per-scenario leaf: after a launch the
@@ -339,9 +348,13 @@ def test_emulated_kernel_stages_the_shared_leaves(emulated, case):
     0xff bytes the emulation fills it with. "fixture": every leaf shared;
     "mixed": the fleet controller's problem with Cu, cb, Rd and the
     inertia shared, per-knot w and cb, the rest per scenario. (Cu, shared
-    or not, goes to a stage block's tile, which the results hold.)"""
+    or not, goes to a stage block's tile, which the results hold.)
+    "falling_cat": the attitude model's leaves, all shared, its inertia the
+    one parameter it has: the others' room stays as it was filled."""
     dtype = torch.float64
-    if case == "fixture":
+    if case == "falling_cat":
+        spec, prob, _ = examples.line_search_case("falling_cat", 9, dtype, "cpu", 6, 8)
+    elif case == "fixture":
         spec, prob, _ = examples.line_search_case("fixture", 9, dtype, "cpu", 20, 8)
     else:
         spec, prob, _ = examples.line_search_case("standing", 9, dtype, "cpu", 6, 8)
@@ -359,6 +372,11 @@ def test_emulated_kernel_stages_the_shared_leaves(emulated, case):
     staged = 0
     for name, off in zip(_STAGED, at):
         t, extent = by_name[name]
+        if t is None:  # a parameter the model has not
+            got = np.empty(1)
+            emulated.shared_f64(got.ctypes.data, off, 1)
+            assert np.isnan(got).all(), f"{name} is not the model's and was staged"
+            continue
         values = t[..., 0].reshape(-1)
         if name == "cb" and flags & 2:
             values = t[N, :, 0]
@@ -371,7 +389,7 @@ def test_emulated_kernel_stages_the_shared_leaves(emulated, case):
             staged += 1
         else:
             assert np.isnan(got).all(), f"{name} is per scenario and was staged"
-    assert staged == (11 if case == "fixture" else 6)
+    assert staged == {"fixture": 11, "mixed": 6, "falling_cat": 6}[case]
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
@@ -413,3 +431,156 @@ def test_emulated_kernel_reads_strided_parameters(emulated, dtype):
         assert not given.is_contiguous() and t.data_ptr() == given.data_ptr(), name
         assert extent == 33 and k8._strides(t) == (1, rows), name
     _hold(emulated, spec, prob, xs, us, lam, rho, "strided parameters")
+
+
+# K8's other models: the convex fleet controller's problem (the Euler SRB,
+# midpoint rule, every leaf per scenario), the golden convex fixture (forward
+# Euler, N = 30, leaves shared along B) and a falling_cat fleet (the attitude
+# model, midpoint rule, per-knot w, Qdf, leaves shared along B)
+_INSTANTIATION = {"convex": "euler_srb_midpoint", "convex_fixture": "euler_srb_euler",
+                  "falling_cat": "attitude_midpoint"}
+
+
+def _model_case(name, batch, dtype, horizon=8):
+    spec, prob, _ = examples.line_search_case(name, batch, dtype, "cpu", horizon, 8)
+    table, (*_, flags) = k8.check_inputs(spec, prob, *_inputs(spec, prob))
+    assert k8.INSTANTIATIONS[flags >> 8] == _INSTANTIATION[name]
+    return spec, prob
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("name,batch", [("convex", 1), ("convex", 7), ("convex", 33),
+                                        ("convex_fixture", 9), ("falling_cat", 1),
+                                        ("falling_cat", 7), ("falling_cat", 33)])
+def test_emulated_models_match_plain(emulated, dtype, name, batch):
+    """Each of K8's other instantiations against its plain version: the
+    Euler SRB by the midpoint rule and by forward Euler (its reference
+    approximation of the Jacobian, discretised), the attitude model (the
+    plain version's Jacobian by torch.func.jacfwd); one scenario, a ragged
+    tile, a tile and one scenario; some rows active and some not."""
+    spec, prob = _model_case(name, batch, dtype)
+    xs, us, lam, rho = _inputs(spec, prob)
+    z = lam + rho * tfl.constraint_values(prob, xs, us)
+    assert bool((z >= 0).any()) and bool((z < 0).any())
+    _hold(emulated, spec, prob, xs, us, lam, rho, f"{name} B={batch}")
+
+
+@pytest.mark.parametrize("integrator", ["midpoint", "euler"])
+@pytest.mark.parametrize("n_feet", [1, 2, 3])
+def test_emulated_euler_srb_with_fewer_feet(emulated, integrator, n_feet):
+    """One to three feet of the convex fleet controller's problem, by the
+    midpoint rule and by forward Euler."""
+    spec, prob, _ = examples.line_search_case("convex", 9, torch.float64, "cpu", 6, 8)
+    spec, prob = _feet(spec._replace(integrator=integrator), prob, n_feet)
+    _hold(emulated, spec, prob, *_inputs(spec, prob), f"Euler SRB {integrator} {n_feet} feet")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("name", ["convex", "falling_cat"])
+def test_emulated_models_with_per_knot_and_shared_leaves(emulated, dtype, name):
+    """Per-knot w (N+1, B) and cb (N+1, nc, B) (rows zeroed at random
+    knots), a terminal weight Qdf, one weight row for the fleet (Qd of
+    batch extent 1), h and ρ per scenario."""
+    spec, prob = _model_case(name, 13, dtype)
+    N, B = prob.us_init.shape[0], prob.us_init.shape[-1]
+    rng = np.random.default_rng(4)
+    t = lambda a: torch.as_tensor(a, dtype=dtype)
+    cb = prob.cb[None].expand(N + 1, *prob.cb.shape).clone() if prob.cb.dim() == 2 \
+        else prob.cb.clone()
+    cb[:, 1::3][torch.from_numpy(rng.random((N + 1, cb[:, 1::3].shape[1], B)) < 0.3)] = 0.0
+    prob = prob._replace(w=t(1.0 + rng.random((N + 1, B))), cb=cb, Qdf=10.0 * prob.Qd,
+                         Qd=prob.Qd[:, :1].contiguous(), h=t(0.01 + 0.01 * rng.random(B)))
+    xs, us, lam, _ = _inputs(spec, prob)
+    rho = t(1.0 + rng.random(B))
+    table, (_, _, _, _, flags) = k8.check_inputs(spec, prob, xs, us, lam, rho)
+    assert flags & 3 == 3 and table[4][1] == 1 and table[17][1] == B and table[18][1] == B
+    _hold(emulated, spec, prob, xs, us, lam, rho, f"{name} per-knot leaves")
+
+
+@pytest.mark.parametrize("name", ["convex", "convex_fixture", "falling_cat"])
+def test_emulated_models_without_inequality_rows(emulated, name):
+    """nc = 0: lu = Rd·(u − u_ref) and luu = diag(Rd) alone."""
+    spec, prob = _model_case(name, 5, torch.float64)
+    prob = prob._replace(Cu=prob.Cu[:0], cb=prob.cb[..., :0, :])
+    got, _ = _hold(emulated, spec, prob, *_inputs(spec, prob), f"{name} nc = 0")
+    nu = spec.nu
+    assert torch.equal(got[5][:, range(nu), range(nu)],
+                       prob.Rd.expand(nu, 5).expand(got[5].shape[0], nu, 5))
+
+
+@pytest.mark.parametrize("name,n_feet,nc", [("euler_srb_midpoint", 4, 24),
+                                             ("euler_srb_midpoint", 2, 12),
+                                             ("euler_srb_midpoint", 1, 0),
+                                             ("euler_srb_euler", 4, 24),
+                                             ("euler_srb_euler", 3, 0),
+                                             ("attitude_midpoint", 1, 6),
+                                             ("attitude_midpoint", 1, 0)])
+def test_flop_count_of_each_model(emulated, name, n_feet, nc):
+    """The operations of one scenario's launch (N = 3) of each of K8's other
+    instantiations on a counting number type: N·flops_per_knot +
+    STATE_FLOPS, whatever the data, the Bs piece's repeats apart
+    (RECOMPUTED_FLOPS)."""
+    problem = {"euler_srb_midpoint": "convex", "euler_srb_euler": "convex_fixture",
+               "attitude_midpoint": "falling_cat"}[name]
+    spec, prob, _ = examples.line_search_case(problem, 1, torch.float64, "cpu", 3, 8)
+    if problem != "falling_cat":
+        spec, prob = _feet(spec, prob, n_feet)
+    if nc == 0:
+        prob = prob._replace(Cu=prob.Cu[:0], cb=prob.cb[..., :0, :])
+    if problem == "convex_fixture":  # N = 30 there: the first three knots
+        prob = prob._replace(x_ref=prob.x_ref[:4], u_ref=prob.u_ref[:4],
+                             us_init=prob.us_init[:3])
+    xs, us, lam, rho = _inputs(spec, prob)
+    table, dims = k8.check_inputs(spec, prob, xs, us, lam, rho)
+    assert dims[0] == 3 and k8.INSTANTIATIONS[dims[4] >> 8] == name
+    outputs = k8.new_outputs(dims, xs)
+    count = emulated.count_flops(*k8.c_tables(table, outputs), *dims)
+    assert count == 3 * k8.flops_per_knot(name, n_feet, nc) + \
+        k8.STATE_FLOPS[name.rsplit("_", 1)[0]]
+    assert emulated.count_recomputed() == 3 * k8.RECOMPUTED_FLOPS[name]
+    want = k8.knot_expansions_ref(spec, prob, xs, us, lam, rho)
+    for g, w in zip(outputs, want):  # the counted run computes the same values
+        assert float((g - w).abs().max()) <= 1e-12 * float(w.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_emulated_attitude_model_spreads_non_finite_values_as_plain(emulated, dtype):
+    """Runaway falling_cat starts, as the solver meets them at its first
+    iterations: scenario 1's quaternion blown up at some knots far enough
+    that the products of the expansions overflow, scenario 4's first state
+    Inf, scenario 5's a NaN. Every output has as many non-finite elements as
+    the plain version's, in the same places, and the finite ones agree to
+    RTOL of each scenario's scale."""
+    spec, prob = _model_case("falling_cat", 7, dtype)
+    xs, us, lam, rho = _inputs(spec, prob)
+    huge = 1e13 if dtype == torch.float32 else 1e105
+    xs = xs.clone()
+    xs[3:6, 0:4, 1] *= huge
+    xs[0, 5, 4] = float("inf")
+    xs[2, 1, 5] = float("nan")
+    got = _emulated(emulated, spec, prob, xs, us, lam, rho)
+    want = k8.knot_expansions_ref(spec, prob, xs, us, lam, rho)
+    spread = 0
+    for name, g, w in zip(_OUTPUTS, got, want):
+        bad_g, bad_w = ~torch.isfinite(g), ~torch.isfinite(w)
+        assert torch.equal(bad_g, bad_w), (
+            f"{name}: {int(bad_g.sum())} non-finite elements, plain {int(bad_w.sum())}")
+        spread += int(bad_w.sum())
+        fin = torch.where(bad_w, 0.0, w)
+        scale = fin.abs().flatten(0, -2).max(0).values.clamp_min(1e-300)
+        err = (torch.where(bad_w, 0.0, g - w).abs().flatten(0, -2).max(0).values / scale).max()
+        assert float(err) <= RTOL[dtype], f"{name}: {float(err):.3g} of a scenario's scale"
+    assert spread > 0 and bool(torch.isfinite(got[0][..., [0, 2, 3, 6]]).all())
+
+
+@pytest.mark.parametrize("name", ["convex", "falling_cat"])
+def test_emulated_models_order_their_pieces_by_the_barrier(emulated, name):
+    """With a block's warps resumed last to first, every output of the
+    Euler SRB's and the attitude model's instantiations is still the plain
+    version's."""
+    spec, prob = _model_case(name, 33, torch.float64)
+    emulated.set_warps_reversed(1)
+    try:
+        _hold(emulated, spec, prob, *_inputs(spec, prob), f"{name}: warps last to first")
+    finally:
+        emulated.set_warps_reversed(0)

@@ -25,10 +25,14 @@ Prints the card's name and power limit, then one JSON object:
   of 50 launches;
 - the Euler convex fleet controller's step (N=10, 1 AL x 5 iLQR, 8 alphas,
   f32, B=4096): p50 / min / max ms of 10 steps after 2 warm-ups, the device
-  operations of one traced step, and the fleet's mean Σfz;
+  operations of one traced step with the launches, device operations and
+  device ms inside its `expansions` profiler ranges (the backward passes'
+  knot expansions, one range an iLQR iteration), and the fleet's mean Σfz;
 - the falling_cat fleet's solve (`examples.falling_cat_fleet`, B=4096, f32,
   N=40, 3 AL x 25 iLQR, 12 alphas): p50 / min / max ms of 3 solves after 1
-  warm-up, and the device operations of one traced solve cut to 1 x 5.
+  warm-up, and the solve cut to 1 x 5: p50 / min / max ms of 5 after 1
+  warm-up and the device operations of one traced, with its `expansions`
+  ranges as the convex step's.
 It uses only functions the port has had since its hardware loop was graphed,
 and `chip_smoke.py`'s helpers of the same checkout (the last two parts use
 none of them).
@@ -50,11 +54,14 @@ KERNELS = {"K1": "riccati_sweep_kernel", "K2": "line_search_kernel",
            "K4": "assoc_backward_kernel", "K7": "articulated_kernel", "K8": "expansions_kernel"}
 
 
-def _trace(fn):
+def _trace(fn, ranges=()):
     """The device operations of one fn() in a torch.profiler trace. A
     profiler range (`record_function`: the steps' `fleet_step.*`, the
     solver's `expansions`) is also recorded on the device, as an annotation
-    spanning its kernels; it is no operation and is left out."""
+    spanning its kernels; it is no operation and is left out. For each of
+    ``ranges``: the times it was entered, the launch calls on the host
+    inside it, and the device operations and their ms inside its spans on
+    the device."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -64,15 +71,28 @@ def _trace(fn):
         fn()
         torch.cuda.synchronize()
     events = prof.events()
-    ranges = {e.name for e in events if getattr(e, "is_user_annotation", False)}
-    ops = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in ranges]
+    annotations = {e.name for e in events if getattr(e, "is_user_annotation", False)}
+    ops = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in annotations]
     kernels = {}
     for tag, name in KERNELS.items():
         mine = [e for e in ops if name in e.name]
         kernels[tag] = [len(mine), sum(e.time_range.elapsed_us() for e in mine) / 1e3]
-    return {"device_ops": len(ops),
-            "device_busy_ms": sum(e.time_range.elapsed_us() for e in ops) / 1e3,
-            "kernels_launches_ms": kernels}
+    out = {"device_ops": len(ops),
+           "device_busy_ms": sum(e.time_range.elapsed_us() for e in ops) / 1e3,
+           "kernels_launches_ms": kernels}
+    for name in ranges:
+        host = [e.time_range for e in events
+                if e.name == name and e.device_type == DeviceType.CPU]
+        span = [e.time_range for e in events
+                if e.name == name and e.device_type == DeviceType.CUDA]
+        inside = [e for e in ops if any(d.start <= e.time_range.start <= d.end for d in span)]
+        out[f"range_{name}"] = {
+            "entered": len(host),
+            "launches": sum(1 for e in events if e.name.startswith(("cudaLaunch", "cuLaunch"))
+                            and any(h.start <= e.time_range.start <= h.end for h in host)),
+            "device_ops": len(inside),
+            "device_ms": sum(e.time_range.elapsed_us() for e in inside) / 1e3}
+    return out
 
 
 def _ms(times):
@@ -174,7 +194,8 @@ def convex_step(device):
     inputs = examples.standing_batch(FLEET_B, 10, torch.float32, device, controller="convex")
     times = _timed(lambda: ctrl(*inputs), runs=10, warmup=2)
     grf, _ = ctrl(*inputs)
-    return {"step_ms_p50_min_max": _ms(times), **_trace(lambda: ctrl(*inputs)),
+    return {"step_ms_p50_min_max": _ms(times),
+            **_trace(lambda: ctrl(*inputs), ranges=("expansions",)),
             "mean_sum_fz_N": grf[..., 2].sum(-1).mean().item()}
 
 
@@ -186,8 +207,10 @@ def falling_cat_solve(device):
     solver = al_ilqr.make_solver(spec, opts)
     times = _timed(lambda: solver(prob), runs=3, warmup=1)
     short = al_ilqr.make_solver(spec, opts._replace(al_iterations=1, ilqr_iterations=5))
+    short_times = _timed(lambda: short(prob), runs=5, warmup=1)
     return {"solve_ms_p50_min_max": _ms(times),
-            "solve_1x5": _trace(lambda: short(prob))}
+            "solve_1x5": {"ms_p50_min_max": _ms(short_times),
+                          **_trace(lambda: short(prob), ranges=("expansions",))}}
 
 
 PARTS = {
