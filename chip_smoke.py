@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                  # everything; what the last line reports
     python3 chip_smoke.py --kernels-only   # phases 1-3 (K2 too), K7 on seeded states, the kernels' timings; no result line
+    python3 chip_smoke.py --kernels-only --k1-baseline OLD.cu   # and K1 held element by element and timed beside the parent's source (K4's code too)
     python3 chip_smoke.py --kernels-only --k7-baseline OLD.cu   # and K7 timed beside another source of it
     python3 chip_smoke.py --kernels-only --k2-baseline OLD.cu   # and K2 held bit for bit and timed beside another
     python3 chip_smoke.py --kernels-only --k8-baseline OLD.cu[,OTHER.cu]   # and K8 the same
@@ -14,7 +15,9 @@ non-zero before the last line):
    name and power limit as nvidia-smi reports them;
 2. build: compiles the CUDA kernels from `quaternion_mpc_tpu_torch/csrc/`,
    one nvcc per source, all at once, and prints what ptxas reports of each
-   (registers, stack, spills); K1 must not spill, nor K4 in f32, nor K7 in
+   (registers, stack, spills); K1 must not spill at any of its 14 kernels
+   (seven instantiations, f32 and f64) and keep `knot`'s registers at 12 x 12,
+   K4's four lines must be what they were, nor may K7 spill in
    f32 or f64, nor K2's 52 kernels, nor K8's 26 (f32 and f64: the
    quaternion SRB and the Euler SRB by the midpoint rule and forward Euler
    at one to four feet, the attitude model), which keep no stack but the
@@ -88,7 +91,13 @@ non-zero before the last line):
    and f64 B=1) and K8 alone (f32 N=10 at B in {4096, 16384}, the hardware
    tick's N=6 at B=1, f64 N=10 at B in {256, 4096}; the convex fleet's f32
    B=4096 and f64 B=256, the convex fixture's f64 N=30 B in {1, 256}, the
-   falling_cat fleet's f32 N=40 B=4096 and f64 B=1), each beside its bound
+   falling_cat fleet's f32 N=40 B=4096 and f64 B=1), and K1 at each
+   instantiation below 12 x 12 and with the cross term (falling_cat's 6 x 3
+   f32 N=40 B=4096 and f64 B=1, the humanoid's 12 x 6 N=20 B in {1, 256},
+   the double integrator's and the pendulum's at N=20 B=4096, the bicycle's
+   4 x 2 with lux N=30 B in {1, 4096}, the Go1's 12 x 12 with lux), each in
+   turns with the parent's launch of the same problem (`embed` into 12 x 12),
+   each beside its bound
    on the card (the larger of bytes over
    3.35 TB/s and operations over the peak rate of the type) and the plain
    version's time;
@@ -146,28 +155,29 @@ non-zero before the last line):
 
 12. the single-problem path (`solver.al_ilqr.make_solver`, which lifts a
    `TrajOptProblem` to the fleet solver's sweep backend, so every solve runs
-   K1, embedded in 12 x 12 where ne or nu is smaller): K1 through its wrapper
-   against the plain sweep at the problem's own size, (ne, nu) in {(12, 6),
-   (6, 3), (2, 1), (4, 2)} (humanoid, falling_cat, pendulum, double
-   integrator), N in {20, 40}, B in {1, 7, 4096}, f32 and f64, phase 3's
-   tolerances; K1 with the cost's cross term lux, which a problem with state
+   K1, at the problem's own size): K1 through its wrapper against the plain
+   sweep at the problem's own size, (ne, nu) in {(12, 6), (6, 3), (2, 1),
+   (4, 2)} (humanoid, falling_cat, pendulum, double integrator) and a drawn
+   5 x 3 (embedded in 6 x 3), N in {20, 40}, B in {1, 7, 4096}, f32 and f64,
+   phase 3's tolerances, and against the parent's launch (`embed` into
+   12 x 12; the elements that differ counted); K1 with the cost's cross
+   term lux, which a problem with state
    rows Cx hands it, against the plain sweep with the cross term: a bicycle
-   fleet whose rows mix state and inputs (ne = 4, nu = 2, embedded), N in
+   fleet whose rows mix state and inputs (ne = 4, nu = 2, at its own size), N in
    {15, 30}, B in {1, 7, 4096}, and the Go1 expansions with drawn mixed rows
    (12 x 12, not embedded), N = 10, B in {7, 4096}, f32 and f64; in the main
    process, counted: one default solve (the quat fixture, 6 x 10: exactly 60
    K1 launches, no K4) and one of the convex fixture (60 K1, 60 K2, 60 K8),
    one falling_cat receding tick (2 x 8: 16 K1, 16 K2, 16 K8) and the
    bicycle's receding solves (state rows Cx; 2 x 8: 16 K1 launches each, the
-   kernel with the cross term); a falling_cat fleet (B=4096, f32, N=40,
+   kernel with the cross term; no counted path calls `embed`); a falling_cat fleet (B=4096, f32, N=40,
    3 x 25, starts at 100-175 degrees about seeded axes): one counted warm-up
    solve (75 K1, 75 K2 and 75 K8 launches), p50 / min / max of 3 more, one
    solve of the same starts in f64, both fleets held to the reference's
    bounds in every start but the few beyond 160 degrees that run away (the
    cost is unbounded below in |q|; none up to 160 degrees may; the runaway
    sets and the held count printed beside the parent's, `CAT_PARENT`), one
-   profiled solve, and K1 alone at
-   this shape beside the bound of the function at its own size. As workers beside phase 11's: the three
+   profiled solve. As workers beside phase 11's: the three
    golden C++ fixtures (quat N=20, trot nu=6, convex N=30 forward Euler) at
    default options in f64, one problem and B=256, against the JSON at the
    JAX tests' bounds; the three branch scenarios at their own sizes in f64
@@ -1128,6 +1138,165 @@ def _k2_clock_split(stamps, N):
     waits = knots[2::3]
     return dict(zip(K2_PASSES, (d[0], d[1], d[2], knots[0::3].sum(), knots[1::3].sum(),
                                 waits.sum(), *d[3 + 3 * N - 1:]))), int(stamps[1] - stamps[0])
+
+
+def _k1_library(path):
+    """A build of K1 as launch(inputs, luxs=None) -> its five outputs at the
+    problem's size: a build of this source at the instantiation the wrapper
+    picks, or of the parent's (its 12 x 12 kernel and the cross term's
+    entries; what it launched for a smaller problem: `embed` into 12 x 12,
+    the live block)."""
+    from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
+
+    lib = ctypes.CDLL(str(path))
+    templated = hasattr(lib, "riccati_sweep_shapes")
+    names = ("riccati_sweep_f32", "riccati_sweep_f64") + (
+        () if templated else ("riccati_sweep_lux_f32", "riccati_sweep_lux_f64"))
+    for name in names:
+        pointers = 15 if templated or "lux" in name else 14
+        getattr(lib, name).argtypes = ([ctypes.c_int] * 2 * templated + [ctypes.c_void_p] * pointers
+                                       + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        getattr(lib, name).restype = ctypes.c_int
+
+    def launch(args, luxs=None):
+        horizon, ne, batch, nu = args[0].shape[0], args[0].shape[1], args[0].shape[-1], args[1].shape[2]
+        size = rs.instantiation(ne, nu, luxs is not None) if templated else (12, 12)
+        inputs, lux = args, luxs
+        if size != (ne, nu):
+            big = rs.embed(*args, luxs=luxs, size=size)
+            inputs, lux = big[:9], None if luxs is None else big[9]
+        like = dict(dtype=args[0].dtype, device=args[0].device)
+        outs = (torch.empty((horizon, size[1], size[0], batch), **like),
+                torch.empty((horizon, size[1], batch), **like), *(torch.empty_like(args[8])
+                                                                  for _ in range(3)))
+        t = "f32" if args[0].dtype == torch.float32 else "f64"
+        lux_pointers = [None if lux is None else lux.data_ptr()] if templated or lux is not None else []
+        pointers = ([x.data_ptr() for x in inputs[:6]] + lux_pointers
+                    + [x.data_ptr() for x in (*inputs[6:], *outs)])
+        fn = getattr(lib, f"riccati_sweep_{'lux_' if lux is not None and not templated else ''}{t}")
+        err = fn(*(size if templated else ()), *pointers, horizon, batch,
+                 torch.cuda.current_stream().cuda_stream)
+        _check(err == 0, f"{path.name}: launch at {size} failed with CUDA error {err}")
+        return (outs[0][:, :nu, :ne], outs[1][:, :nu], *outs[2:])
+
+    return launch
+
+
+def phase_k1_baseline(device, baseline):
+    """--kernels-only --k1-baseline SOURCE, SOURCE the parent's
+    csrc/riccati_sweep.cu beside its own warp_tile.cuh and assoc_scan.cu:
+    K4 built from the parent's source and header, its ptxas lines and its
+    PTX against the shipped build's (they must be the same); K1 built from
+    the parent's source and from copies of this one with one shape line
+    changed (the 12 x 12 instantiations by the group body; falling_cat's 6 x 3
+    at 16 and at 4 lanes a scenario), each held element by element against
+    the shipped build on phase 3's inputs (12 x 12; the parent's must equal
+    it in every element) and on phase 12's falling_cat and humanoid inputs,
+    and timed in turns with it by events around a replayed graph of 20
+    launches (the parent's through `embed` below 12 x 12, as it ran)."""
+    from quaternion_mpc_tpu_torch.kernels import assoc_scan as k4
+    from quaternion_mpc_tpu_torch.kernels import build as kbuild
+    from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
+
+    parent = pathlib.Path(baseline).resolve()
+    text = rs.SOURCE.read_text()
+    edits = {"group body at 12x12": ("WARP12 = NE == 12 && NU == 12", "WARP12 = false"),
+             "6x3 at 16 lanes": ("NE > 4 ? 8 : 4", "NE > 4 ? 16 : 4"),
+             "6x3 at 4 lanes": ("NE > 4 ? 8 : 4", "NE > 4 ? 4 : 4")}
+    sources = {"parent": parent}
+    kbuild.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    for name, (old, new) in edits.items():
+        _check(text.count(old) == 1, f"K1 variant {name}: {old!r} not found once")
+        path = kbuild.BUILD_DIR / f"riccati_sweep_{re.sub(r'[^a-z0-9]+', '_', name)}.cu"
+        path.write_text(text.replace(old, new))
+        sources[name] = path
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        k4_parent = pool.submit(kbuild.build, parent.parent / "assoc_scan.cu")
+        paths = dict(zip(sources, pool.map(kbuild.build, sources.values())))
+        k4_parent = k4_parent.result()
+    print(f"[K1] {len(paths) + 1} more builds in {time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        for k in kbuild.ptxas_report(path):
+            where = (_k1_tag(*_k1_kernel(k["name"])[:3]) + " " + _k1_kernel(k["name"])[3]
+                     if "Shape" in k["name"] else k["name"][-30:])
+            print(f"[K1] ptxas {name} {where}: {k['registers']} registers, {k['stack']} bytes "
+                  f"stack, spill {k['stores']} / {k['loads']} bytes")
+    shipped_k4 = [(k["name"], k["registers"], k["stack"], k["stores"], k["loads"])
+                  for k in kbuild.ptxas_report(k4.build())]
+    parent_k4 = [(k["name"], k["registers"], k["stack"], k["stores"], k["loads"])
+                 for k in kbuild.ptxas_report(k4_parent)]
+    # the machine code of the two builds (cuobjdump's SASS), and where their
+    # PTX differs
+    sass, ptx = [], []
+    cuobjdump = pathlib.Path(kbuild._nvcc()).with_name("cuobjdump")
+    for i, (src, lib) in enumerate(((k4.SOURCE, k4.build()),
+                                    (parent.parent / "assoc_scan.cu", k4_parent))):
+        out = kbuild.BUILD_DIR / f"assoc_scan_{i}.ptx"
+        subprocess.run([kbuild._nvcc(), "-arch=sm_90a", "-std=c++17", "-O3", "--ptx", "-I",
+                        str(src.parent), "-o", str(out), str(src)], check=True)
+        ptx.append([line for line in out.read_text().splitlines() if not line.startswith("//")])
+        dump = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                              check=True).stdout
+        sass.append([line.split("/*", 2)[-1] if "/*" in line else line
+                     for line in dump.splitlines() if "Function" in line or "/*" in line])
+    off = [(a, b) for a, b in zip(*ptx) if a != b]
+    print(f"[K1] K4 from the parent's source and header: ptxas lines "
+          f"{'the same' if shipped_k4 == parent_k4 else 'DIFFERENT'}; SASS "
+          f"{'the same' if sass[0] == sass[1] else 'DIFFERENT'} ({len(sass[0])} / {len(sass[1])} "
+          f"lines); PTX {len(ptx[0])} / {len(ptx[1])} lines, {len(off)} of them differ"
+          + "".join(f"\n[K1]   PTX {a.strip()!r} | parent {b.strip()!r}" for a, b in off[:6]))
+    _check(shipped_k4 == parent_k4 and sass[0] == sass[1],
+           f"K4's code moved with the header: {shipped_k4} against {parent_k4}")
+
+    launches = {name: _k1_library(path) for name, path in paths.items()}
+    shipped = lambda args, luxs=None: rs.riccati_sweep(*args, luxs=luxs)
+    cases = [(f"{str(dtype)[6:]} N={horizon} B={batch}", _sweep_inputs(batch, dtype, device,
+                                                                        horizon), None)
+             for dtype in (torch.float32, torch.float64) for horizon, batches in K1_CHECKED.items()
+             for batch in batches]
+    cases += [(f"{str(dtype)[6:]} go1 lux B={batch}", *_go1_cross(batch, dtype, device))
+              for dtype in (torch.float32, torch.float64) for batch in (7, 4096)]
+    cases += [(f"{str(dtype)[6:]} {family} N={horizon} B={batch}",
+               _family_first_pass(family, horizon, batch, dtype, device), None)
+              for dtype in (torch.float32, torch.float64)
+              for family in ("falling_cat", "humanoid") for horizon in SINGLE_CHECKED_N
+              for batch in SINGLE_CHECKED_B]
+    differ = {name: [0, 0, 0] for name in launches}  # elements, of, launches with any
+    refused = {name: 0 for name in launches}
+    for tag, args, luxs in cases:
+        want = shipped(args, luxs)
+        for name, launch in launches.items():
+            if name == "6x3 at 4 lanes" and args[0].dtype == torch.float64:
+                refused[name] += 1  # 64 scenarios a block: past an SM's shared memory in f64
+                continue
+            n_diff, n_all = _differ(launch(args, luxs), want)
+            differ[name][0] += n_diff
+            differ[name][1] += n_all
+            differ[name][2] += n_diff > 0
+            if name == "parent" and tag.split(" ")[1].startswith(("N=", "go1")):
+                _check(n_diff == 0, f"K1 12x12 {tag}: {n_diff} elements differ from the parent's build")
+        torch.cuda.synchronize()
+    for name, (n_diff, n_all, off) in differ.items():
+        print(f"[K1] {name}: {n_diff} of {n_all} elements differ from the shipped build, in {off} "
+              f"of {len(cases) - refused[name]} launches (phase 3's 12x12 shapes, the drawn mixed "
+              f"rows, phase 12's falling_cat and humanoid shapes; f32 only at 4 lanes)")
+
+    timed = (("f32 N=10 B=4096", _sweep_inputs(4096, torch.float32, device), ("parent", "group body at 12x12")),
+             ("f32 N=10 B=16384", _sweep_inputs(16384, torch.float32, device),
+              ("parent", "group body at 12x12")),
+             ("f32 falling_cat N=40 B=4096", _k1_timed_shapes()[0][2](torch.float32, device)[0],
+              ("parent", "6x3 at 16 lanes", "6x3 at 4 lanes")),
+             ("f32 humanoid N=20 B=256", _family_first_pass("humanoid", 20, 256, torch.float32,
+                                                           device), ("parent",)))
+    for tag, args, others in timed:
+        fns = {"shipped": lambda: shipped(args), **{n: (lambda n=n: launches[n](args)) for n in others}}
+        times = {n: [] for n in fns}
+        for _ in range(2):
+            for n, fn in fns.items():
+                times[n].append(_graph_time(fn, reps=20) * 1e3)
+        print(f"[K1] timed in turns, {tag}: " + "; ".join(
+            f"{n} {' / '.join(f'{t:.4f}' for t in ts)} ms" for n, ts in times.items()))
 
 
 def phase_k2_designs(device, baseline=None):
@@ -2493,19 +2662,56 @@ def _family_first_pass(family, horizon, batch, dtype, device):
     return _first_pass(al_ilqr.lift_problem(fleet_prob), al_ilqr.fleet_spec(spec))
 
 
+def _random_first_pass(ne, nu, horizon, batch, dtype, device):
+    """Well-posed K1 inputs at (ne, nu) from a seeded generator on the card:
+    contracting As, SPD lxx, luu and lxxN, reg 1e-6."""
+    gen = torch.Generator(device=device).manual_seed(ne * 100 + nu + batch)
+    r = lambda *shape: torch.randn(shape, generator=gen, dtype=torch.float64, device=device)
+    eye = lambda n: torch.eye(n, dtype=torch.float64, device=device)[..., None]
+    spd = lambda n, *lead: (lambda m: torch.einsum("...ikb,...jkb->...ijb", m, m)
+                            + 0.5 * eye(n))(r(*lead, n, n, batch))
+    out = (0.3 * r(horizon, ne, ne, batch) + eye(ne), 0.2 * r(horizon, ne, nu, batch),
+           r(horizon, ne, batch), spd(ne, horizon), r(horizon, nu, batch), spd(nu, horizon),
+           r(ne, batch), spd(ne), torch.full((batch,), 1e-6, dtype=torch.float64, device=device))
+    return [t.to(dtype).contiguous() for t in out]
+
+
+def _embedded(rs, args, luxs=None):
+    """The parent's launch of a problem below 12 x 12: `embed` into 12 x 12,
+    the 12 x 12 instantiation, the live block of its outputs."""
+    ne, nu = args[0].shape[1], args[1].shape[2]
+    big = rs.embed(*args, luxs=luxs)
+    out = rs.riccati_sweep(*big[:9], luxs=None if luxs is None else big[9])
+    return (out[0][:, :nu, :ne], out[1][:, :nu], *out[2:])
+
+
+def _differ(got, other):
+    """(elements of the five outputs that differ, elements in all)."""
+    return (sum(int((g != o).sum()) for g, o in zip(got, other)),
+            sum(g.numel() for g in got))
+
+
 def phase_small_kernel_vs_plain(device):
-    """K1 through its wrapper (`embed`, the 12 x 12 launch, the slices) at
-    SINGLE_FAMILIES x SINGLE_CHECKED_N x SINGLE_CHECKED_B against the plain
-    sweep at the problem's own size, to phase 3's tolerances: f64 kernel vs
-    plain; f32 kernel and f32 plain each against the plain sweep in f64."""
+    """K1 through its wrapper at SINGLE_FAMILIES x SINGLE_CHECKED_N x
+    SINGLE_CHECKED_B, each family at its own instantiation, and at a 5 x 3
+    shape that has none (embedded in 6 x 3), against the plain sweep at the
+    problem's own size, to phase 3's tolerances: f64 kernel vs plain; f32
+    kernel and f32 plain each against the plain sweep in f64. Each is also
+    compared with the parent's launch on the same inputs (`embed` into
+    12 x 12, the 12 x 12 instantiation), and the elements that differ are
+    counted. Returns (the f32 kernel's largest absolute error, {shape tag:
+    [elements that differ, elements]})."""
     from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
 
-    worst_f32 = 0.0
+    worst_f32, differ = 0.0, {}
+    families = SINGLE_FAMILIES + (("random", 5, 3),)
     for dtype in (torch.float32, torch.float64):
-        for family, ne, nu in SINGLE_FAMILIES:
+        for family, ne, nu in families:
             for horizon in SINGLE_CHECKED_N:
                 for batch in SINGLE_CHECKED_B:
-                    args = _family_first_pass(family, horizon, batch, dtype, device)
+                    args = (_random_first_pass(ne, nu, horizon, batch, dtype, device)
+                            if family == "random"
+                            else _family_first_pass(family, horizon, batch, dtype, device))
                     _check(args[0].shape == (horizon, ne, ne, batch)
                            and args[1].shape == (horizon, ne, nu, batch), f"{family}: shapes")
                     before = rs.riccati_sweep.launches
@@ -2515,59 +2721,156 @@ def phase_small_kernel_vs_plain(device):
                     _check(got[0].shape == (horizon, nu, ne, batch)
                            and got[1].shape == (horizon, nu, batch), f"{family}: output shapes")
                     want = rs.riccati_sweep_ref(*(t.double() for t in args))
+                    size = rs.instantiation(ne, nu)
+                    how = ("at its own size" if size == (ne, nu)
+                           else f"embedded in {_k1_tag(*size)}")
                     tag = (f"riccati_sweep {str(dtype)[6:]} {family} ne={ne} nu={nu} "
                            f"N={horizon} B={batch}")
                     line, worst = _hold(got, want, dtype, tag)
-                    print(f"[kernel] {tag} (embedded in 12x12) vs plain f64 at its own size, "
-                          f"max|err|/scale: {line}")
+                    n_diff, n_all = _differ(got, _embedded(rs, args))
+                    counts = differ.setdefault(f"{_k1_tag(ne, nu)} {str(dtype)[6:]}", [0, 0])
+                    counts[0] += n_diff
+                    counts[1] += n_all
+                    print(f"[kernel] {tag} ({how}) vs plain f64 at its own size, max|err|/scale: "
+                          f"{line}; {n_diff} of {n_all} elements differ from the 12x12 launch "
+                          f"on embed's inputs")
                     if dtype == torch.float32:
                         _hold(rs.riccati_sweep_ref(*args), want, dtype, f"plain {tag}")
                         worst_f32 = max(worst_f32, worst)
-    return worst_f32
+    return worst_f32, differ
+
+
+def _bicycle_cross(horizon, batch, dtype, device):
+    """(K1 inputs, luxs) of the mixed-row bicycle fleet's backward pass."""
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.solver import fleet
+
+    spec, prob, lam, rho = examples.bicycle_mixed_rows(batch, horizon, dtype, device)
+    xs = fleet.open_loop_rollout(spec, prob, prob.us_init)
+    *exps, luxs = fleet.knot_expansions_with_cross(spec, prob, xs, prob.us_init, lam, rho)
+    lxN, lxxN = fleet.terminal_expansion(spec, xs[-1], prob, lam, rho)
+    reg = torch.full((batch,), 1e-8, dtype=dtype, device=device)
+    return [t.contiguous() for t in (*exps, lxN, lxxN, reg)], luxs.contiguous()
+
+
+def _go1_cross(batch, dtype, device):
+    """(K1 inputs, luxs) of the Go1 fleet's first pass with 16 drawn rows G =
+    [Gx Gu] a knot at penalty rho, all active: lxx gains rho·GxᵀGx, luu
+    rho·GuᵀGu and lux = rho·GuᵀGx, so the joint Hessian gains rho·GᵀG and
+    stays positive semi-definite (more rows than inputs: Quu is then
+    well-conditioned, and f32 is held as elsewhere)."""
+    from quaternion_mpc_tpu_torch.solver import fleet
+
+    args = _sweep_inputs(batch, dtype, device)
+    gen = torch.Generator(device=device).manual_seed(batch)
+    draw = lambda *shape: torch.randn(shape, generator=gen, dtype=dtype, device=device)
+    Gx, Gu = draw(HORIZON, 16, 12, batch), draw(HORIZON, 16, 12, batch)
+    rho = 0.05 * args[3].abs().amax()
+    args[3] = (args[3] + rho * fleet.bmm(fleet.bt(Gx), Gx)).contiguous()
+    args[5] = (args[5] + rho * fleet.bmm(fleet.bt(Gu), Gu)).contiguous()
+    return args, (rho * fleet.bmm(fleet.bt(Gu), Gx)).contiguous()
 
 
 def _cross_term_cases(dtype, device):
     """(tag, (ne, nu), K1 inputs, luxs) with a cross term that is not zero:
-    the mixed-row bicycle fleet's backward pass (embedded), and the Go1
-    fleet's first pass with drawn rows that mix state and inputs (12 x 12,
-    the launch as it stands)."""
-    from quaternion_mpc_tpu_torch import examples
-    from quaternion_mpc_tpu_torch.solver import fleet
-
+    the mixed-row bicycle fleet's backward pass (at its own 4 x 2), and the
+    Go1 fleet's first pass with drawn rows that mix state and inputs
+    (12 x 12)."""
     for horizon in CROSS_CHECKED_N:
         for batch in CROSS_CHECKED_B:
-            spec, prob, lam, rho = examples.bicycle_mixed_rows(batch, horizon, dtype, device)
-            xs = fleet.open_loop_rollout(spec, prob, prob.us_init)
-            *exps, luxs = fleet.knot_expansions_with_cross(spec, prob, xs, prob.us_init, lam, rho)
-            lxN, lxxN = fleet.terminal_expansion(spec, xs[-1], prob, lam, rho)
-            reg = torch.full((batch,), 1e-8, dtype=dtype, device=device)
-            args = [t.contiguous() for t in (*exps, lxN, lxxN, reg)]
-            yield f"bicycle ne=4 nu=2 N={horizon} B={batch}", (4, 2), args, luxs.contiguous()
+            args, luxs = _bicycle_cross(horizon, batch, dtype, device)
+            yield f"bicycle ne=4 nu=2 N={horizon} B={batch}", (4, 2), args, luxs
     for batch in (7, 4096):
-        # 16 more rows G = [Gx Gu] a knot at penalty rho, all active: lxx gains
-        # rho·GxᵀGx, luu rho·GuᵀGu and lux = rho·GuᵀGx, so the joint Hessian
-        # gains rho·GᵀG and stays positive semi-definite (more rows than
-        # inputs: Quu is then well-conditioned, and f32 is held as elsewhere)
-        args = _sweep_inputs(batch, dtype, device)
-        gen = torch.Generator(device=device).manual_seed(batch)
-        draw = lambda *shape: torch.randn(shape, generator=gen, dtype=dtype, device=device)
-        Gx, Gu = draw(HORIZON, 16, 12, batch), draw(HORIZON, 16, 12, batch)
-        rho = 0.05 * args[3].abs().amax()
-        args[3] = (args[3] + rho * fleet.bmm(fleet.bt(Gx), Gx)).contiguous()
-        args[5] = (args[5] + rho * fleet.bmm(fleet.bt(Gu), Gu)).contiguous()
-        luxs = (rho * fleet.bmm(fleet.bt(Gu), Gx)).contiguous()
+        args, luxs = _go1_cross(batch, dtype, device)
         yield f"go1 ne=12 nu=12 N={HORIZON} B={batch}", (12, 12), args, luxs
+
+
+# K1 timed at each instantiation, at the shapes of paths that run it: (tag,
+# dtype, maker of (inputs, luxs or None) on the card). 12 x 12 itself is
+# phase 6's (`K1_TIMED`).
+def _k1_timed_shapes():
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.solver import al_ilqr
+
+    def cat(batch, dtype, device):
+        spec, prob, _ = examples.falling_cat_fleet(batch, dtype, device, seed=0)
+        return _first_pass(al_ilqr.lift_problem(prob), al_ilqr.fleet_spec(spec)), None
+
+    def family(name, horizon, batch):
+        return lambda dtype, device: (
+            _family_first_pass(name, horizon, batch, dtype, device), None)
+
+    return (
+        ("falling_cat ne=6 nu=3 N=40 B=4096", torch.float32, lambda d, dev: cat(4096, d, dev)),
+        ("falling_cat ne=6 nu=3 N=40 B=1", torch.float64, lambda d, dev: cat(1, d, dev)),
+        ("humanoid ne=12 nu=6 N=20 B=1", torch.float32, family("humanoid", 20, 1)),
+        ("humanoid ne=12 nu=6 N=20 B=256", torch.float32, family("humanoid", 20, 256)),
+        ("double_integrator ne=4 nu=2 N=20 B=4096", torch.float32,
+         family("double_integrator", 20, 4096)),
+        ("pendulum ne=2 nu=1 N=20 B=4096", torch.float32, family("pendulum", 20, 4096)),
+        ("bicycle lux ne=4 nu=2 N=30 B=1", torch.float64,
+         lambda d, dev: _bicycle_cross(30, 1, d, dev)),
+        ("bicycle lux ne=4 nu=2 N=30 B=4096", torch.float32,
+         lambda d, dev: _bicycle_cross(30, 4096, d, dev)),
+        ("go1 lux ne=12 nu=12 N=10 B=4096", torch.float32, lambda d, dev: _go1_cross(4096, d, dev)),
+    )
+
+
+def phase_k1_shape_timing(device):
+    """K1 at each instantiation (`_k1_timed_shapes`), by CUDA events around a
+    replayed graph of 20 calls of the wrapper: the launch at the problem's own
+    size, and the parent's launch of the same problem (`embed`'s pads into
+    12 x 12 and the 12 x 12 instantiation; the live block is a view), in turns
+    (own, embedded, own, embedded), and the 12 x 12 launch alone on the
+    padded inputs; each beside the bound of the function at its own size; the
+    plain version (eager). Returns {tag: {...}}."""
+    from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
+
+    out = {}
+    for tag, dtype, make in _k1_timed_shapes():
+        args, luxs = make(dtype, device)
+        horizon, ne, nu, batch = args[0].shape[0], args[0].shape[1], args[1].shape[2], args[0].shape[-1]
+        lux = luxs is not None
+        own = lambda: rs.riccati_sweep(*args, luxs=luxs)
+        embedded = lambda: _embedded(rs, args, luxs)
+        big = rs.embed(*args, luxs=luxs)
+        launch_12 = lambda: rs.riccati_sweep(*big[:9], luxs=big[9] if lux else None)
+        turns = [_graph_time(fn, reps=20) * 1e3 for fn in (own, embedded, own, embedded)]
+        launch_ms = _graph_time(launch_12, reps=20) * 1e3
+        plain_ms = _event_time(lambda: rs.riccati_sweep_ref(*args, luxs=luxs), reps=3,
+                               warmup=1) * 1e3
+        bound_ms, bound_by = _bound(rs.work(horizon, batch, dtype, ne, nu, lux), dtype)
+        ms, embedded_ms = (turns[0] + turns[2]) / 2, (turns[1] + turns[3]) / 2
+        size = rs.instantiation(ne, nu, lux)
+        print(f"[timing] K1 riccati_sweep {str(dtype)[6:]} {tag} at {_k1_tag(*size, lux)}: "
+              f"{turns[0]:.4f} / {turns[2]:.4f} ms (graph replay), bound {bound_ms:.5f} ms by "
+              f"{bound_by} for the function at its own size ({100 * bound_ms / ms:.2f}% of it "
+              f"reached); the parent's launch (embed's pads, the 12x12 launch) {turns[1]:.4f} / "
+              f"{turns[3]:.4f} ms ({100 * bound_ms / embedded_ms:.2f}%), the 12x12 launch alone "
+              f"{launch_ms:.4f} ms; plain {plain_ms:.3f} ms")
+        out[f"{str(dtype)[6:]} {tag}"] = {
+            "instantiation": _k1_tag(*size, lux), "ms": ms, "ms_turns": turns[0::2],
+            "bound_ms": bound_ms, "bound_by": bound_by, "share_of_bound": bound_ms / ms,
+            "plain_ms": plain_ms, "embedded_12x12": {
+                "ms": embedded_ms, "ms_turns": turns[1::2], "launch_alone_ms": launch_ms,
+                "share_of_bound": bound_ms / embedded_ms}}
+        del args, luxs, big
+    return out
+
+
 
 
 def phase_cross_term_vs_plain(device):
     """K1's instantiation with the cost's cross term (Qux = lux + BᵀVxxA)
     through its wrapper against `riccati_sweep_ref(..., luxs=...)` at the
     problem's own size, to phase 3's tolerances; each case must also differ
-    from the sweep without the cross term. Returns the f32 kernel's largest
-    absolute error."""
+    from the sweep without the cross term. The bicycle's launches (at its own
+    4 x 2) are compared with the parent's (embedded in 12 x 12) and the
+    elements that differ counted. Returns (the f32 kernel's largest absolute
+    error, {shape tag: [elements that differ, elements]})."""
     from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
 
-    worst_f32 = 0.0
+    worst_f32, differ = 0.0, {}
     for dtype in (torch.float32, torch.float64):
         for tag, (ne, nu), args, luxs in _cross_term_cases(dtype, device):
             horizon, batch = args[0].shape[0], args[0].shape[-1]
@@ -2582,36 +2885,57 @@ def phase_cross_term_vs_plain(device):
             without = rs.riccati_sweep_ref(*(t.double() for t in args))
             moved = ((want[0] - without[0]).abs().max() / want[0].abs().max()).item()
             _check(moved > 1e-3, f"{tag}: the cross term moves the gains by {moved:.1e} only")
+            line, worst = _hold(got, want, dtype, f"riccati_sweep {str(dtype)[6:]} with lux, {tag}")
+            embedded = ""
+            if (ne, nu) != (12, 12):
+                n_diff, n_all = _differ(got, _embedded(rs, args, luxs))
+                counts = differ.setdefault(f"{_k1_tag(ne, nu, True)} {str(dtype)[6:]}", [0, 0])
+                counts[0] += n_diff
+                counts[1] += n_all
+                embedded = f"; {n_diff} of {n_all} elements differ from the 12x12 launch on embed's inputs"
             tag = f"riccati_sweep {str(dtype)[6:]} with lux, {tag}"
-            line, worst = _hold(got, want, dtype, tag)
-            print(f"[kernel] {tag} vs plain f64 with lux at its own size (lux moves Ks by "
-                  f"{moved:.2e} of scale), max|err|/scale: {line}")
+            print(f"[kernel] {tag} (at {_k1_tag(*rs.instantiation(ne, nu, True), True)}) vs plain "
+                  f"f64 with lux at its own size (lux moves Ks by {moved:.2e} of scale), "
+                  f"max|err|/scale: {line}{embedded}")
             if dtype == torch.float32:
                 _hold(rs.riccati_sweep_ref(*args, luxs=luxs), want, dtype, f"plain {tag}")
                 worst_f32 = max(worst_f32, worst)
-    return worst_f32
+    return worst_f32, differ
 
 
 def _counted(fn, what, want_k1, want_k2, path=None, instantiation="quat_srb_midpoint"):
     """fn() with the kernels' counts set to 0 just before and read just
     after: exactly ``want_k1`` K1 and ``want_k2`` K2 launches (al x ilqr for
     a solve of a model K2 has, 0 for the bicycle's), no K4, and as many K8
-    launches as K2's (every model K2 has, K8 has); ``path`` names the K2 and
+    launches as K2's (every model K2 has, K8 has); K1 at the problem's own
+    size (`riccati_sweep.embed` never called); ``path`` names the K2 and
     K8 launches of ``instantiation`` in the kernels line. Returns (fn's result, the K1 count as
     read)."""
     from quaternion_mpc_tpu_torch.kernels import assoc_scan as k4
     from quaternion_mpc_tpu_torch.kernels import line_search as k2
     from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
 
+    embeds, real_embed = [], rs.embed
+
+    def embed(*args, **kwargs):  # every problem of these paths has an instantiation of its own
+        embeds.append(args[0].shape)
+        return real_embed(*args, **kwargs)
+
     rs.riccati_sweep.launches = k4.assoc_backward.launches = k4.assoc_scan.launches = 0
     k2.line_search.launches = _k8().launches = 0
-    out = fn()
+    rs.embed = embed
+    try:
+        out = fn()
+    finally:
+        rs.embed = real_embed
     torch.cuda.synchronize()
     got = (rs.riccati_sweep.launches, k4.assoc_backward.launches, k4.assoc_scan.launches,
            k2.line_search.launches, _k8().launches)
     want = (want_k1, 0, 0, want_k2, want_k2)
     _check(got == want,
            f"{what}: (K1, assoc_backward, assoc_scan, K2, K8) launches {got}, expected {want}")
+    _check(not embeds, f"{what}: K1 embedded {len(embeds)} launches ({embeds[:1]}): the path's "
+                       f"problem has an instantiation of its own")
     if path is not None:
         _k2_count(path, got[3], instantiation, k8=got[4])
     return out, got[0]
@@ -2792,10 +3116,9 @@ def phase_cat_fleet(device, smi):
     (exactly 75 K1, 75 K2 and 75 K8 launches, K2's and K8's attitude
     instantiations), p50 / min / max of 3 more, the quality of the fleet's
     optimum and of one f64 solve of the same starts (printed beside the
-    parent's figures, CAT_PARENT), and K1 alone at this shape beside the
-    function's bound at its own size. Returns a dict for the kernels line."""
+    parent's figures, CAT_PARENT). K1 alone at this shape is phase 6's
+    (`phase_k1_shape_timing`). Returns a dict for the kernels line."""
     from quaternion_mpc_tpu_torch import examples
-    from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
     from quaternion_mpc_tpu_torch.solver import al_ilqr
 
     b, dtype = CAT_FLEET_B, torch.float32
@@ -2864,33 +3187,9 @@ def phase_cat_fleet(device, smi):
     except RuntimeError as e:  # a record, not a check: the tracer may be unavailable
         print(f"[profile] falling_cat fleet solve not measured: {e}")
 
-    # K1 alone at this shape. "ms" is what the path pays: the whole wrapper
-    # (pads, the 12 x 12 launch, slices), beside the bound of the function at
-    # its own size (ne = 6, nu = 3: 129 values a knot). The launch alone and
-    # the bound of the 12 x 12 launch as it is made (756 values a knot) are
-    # kept under "as_launched_12x12".
-    args = _first_pass(al_ilqr.lift_problem(prob), al_ilqr.fleet_spec(spec))
-    ne, nu, horizon = args[0].shape[1], args[1].shape[2], args[0].shape[0]
-    big = [t.contiguous() for t in rs.embed(*args)]
-    launch_ms = _graph_time(lambda: rs.riccati_sweep(*big), reps=20) * 1e3
-    ms = _graph_time(lambda: rs.riccati_sweep(*args), reps=20) * 1e3
-    plain_ms = _event_time(lambda: rs.riccati_sweep_ref(*args), reps=3, warmup=1) * 1e3
-    bound_ms, bound_by = _bound(rs.work(horizon, b, dtype, ne=ne, nu=nu), dtype)
-    launch_bound_ms, launch_bound_by = _bound(rs.work(horizon, b, dtype), dtype)
-    print(f"[timing] K1 riccati_sweep f32 falling_cat ne={ne} nu={nu} N={horizon} B={b}: {ms:.4f} ms "
-          f"through the wrapper (pads, the 12x12 launch, slices; graph replay), bound "
-          f"{bound_ms:.5f} ms by {bound_by} for the function at its own size "
-          f"({100 * bound_ms / ms:.2f}% of it reached); the 12x12 launch alone {launch_ms:.4f} ms, "
-          f"{100 * launch_bound_ms / launch_ms:.2f}% of the {launch_bound_ms:.5f} ms that its "
-          f"own, padded bytes would take; plain at its own size {plain_ms:.3f} ms")
-    shape = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-             "share_of_bound": bound_ms / ms,
-             "as_launched_12x12": {"ms": launch_ms, "bound_ms": launch_bound_ms,
-                                   "bound_by": launch_bound_by,
-                                   "share_of_bound": launch_bound_ms / launch_ms}}
     return dict(k1_launches=k1_launches, p50=p50, min=min(times), max=max(times),
                 geodesic_max=geo_max, torque_max=u_max, runaways=away,
-                runaways_f64=away64, shape=shape)
+                runaways_f64=away64)
 
 
 def phase_single_counted(device):
@@ -4545,32 +4844,66 @@ def phase_k7_kernels_only(device, baseline):
 K8_STACK = {"euler_srb_midpoint": 40, "euler_srb_euler": 40}
 
 
+# K4's four kernels as ptxas reports them: (entry, type) ->
+# registers, no stack, no spill. They share csrc/warp_tile.cuh with K1, and
+# K4's code must not move with K1's.
+K4_PTXAS = {("assoc_backward", "d"): 174, ("assoc_backward", "f"): 91,
+            ("assoc_scan", "d"): 104, ("assoc_scan", "f"): 72}
+# K1's 12 x 12 instantiations' registers as `knot` gives them (no stack,
+# no spill): (lux, type) -> registers.
+K1_PTXAS_12X12 = {(False, "f"): 109, (False, "d"): 232, (True, "f"): 109, (True, "d"): 234}
+
+
+def _k1_kernel(name):
+    """(ne, nu, lux, "f" or "d") of a K1 kernel's mangled name."""
+    m = re.search(r"ShapeILi(\d+)ELi(\d+)ELb([01])E+([fd])", name)
+    return int(m[1]), int(m[2]), m[3] == "1", m[4]
+
+
+def _k1_tag(ne, nu, lux=False):
+    return f"{ne}x{nu}{' lux' if lux else ''}"
+
+
 def _print_ptxas(kbuild, rs, k4, libs):
-    """What ptxas reported of each kernel; K1, and K4 in f32, must keep their
-    working sets out of local memory (K4 in f64 is reported); K7 must not
+    """What ptxas reported of each kernel; K1 at every instantiation, and K4
+    in f32, must keep their working sets out of local memory (K4 in f64 is
+    reported), and K4's four kernels and K1's 12 x 12 instantiations must be
+    what they were (`K4_PTXAS`, `K1_PTXAS_12X12`); K7 must not
     spill in f32 or f64, nor K2's 52 kernels (f32 and f64, one or two lanes an
     alpha: the quaternion SRB and the Euler SRB under the midpoint rule and
     forward Euler at one to four feet, the attitude model), nor K8's 26 (f32
     and f64: the quaternion SRB, the Euler SRB under the midpoint rule and
     forward Euler at one to four feet, the attitude model), which keep no
     stack either but for the Euler SRB's sine and cosine (`K8_STACK`)."""
-    for lib in libs:
+    for lib in libs[1:]:
         for k in kbuild.ptxas_report(lib):
             print(f"[build] ptxas {lib.name.rsplit('_', 1)[0]} {k['name'][-40:]}: {k['registers']} "
                   f"registers, {k['stack']} bytes stack, spill {k['stores']} / {k['loads']} bytes")
     k1 = kbuild.ptxas_report(libs[0])
-    # f32 and f64, each without and with the cost's cross term
-    _check(len(k1) == 4 and all(k["stack"] == k["stores"] == k["loads"] == 0 for k in k1),
-           f"K1 spills or ptxas reported other kernels than its four: {k1}")
-    print(f"[build] K1 dynamic shared memory a block: f32 {rs.shared_bytes(torch.float32)} "
-          f"bytes, f64 {rs.shared_bytes(torch.float64)} bytes; with the cross term f32 "
-          f"{rs.shared_bytes(torch.float32, lux=True)}, f64 "
-          f"{rs.shared_bytes(torch.float64, lux=True)}")
+    for k in k1:
+        ne, nu, lux, t = _k1_kernel(k["name"])
+        print(f"[build] ptxas riccati_sweep {_k1_tag(ne, nu, lux)} "
+              f"{'float32' if t == 'f' else 'float64'}: {k['registers']} registers, {k['stack']} "
+              f"bytes stack, spill {k['stores']} / {k['loads']} bytes, dynamic shared memory "
+              f"{rs.shared_bytes(torch.float32 if t == 'f' else torch.float64, lux, ne, nu)} bytes "
+              f"a block")
+    # f32 and f64 at each instantiation
+    _check(sorted(_k1_kernel(k["name"]) for k in k1)
+           == sorted((ne, nu, lux, t) for ne, nu, lux in rs.INSTANTIATIONS for t in "fd")
+           and all(k["stack"] == k["stores"] == k["loads"] == 0 for k in k1),
+           f"K1 spills, keeps a stack, or ptxas reported other kernels than its "
+           f"{2 * len(rs.INSTANTIATIONS)}: {k1}")
+    twelve = {(lux, t): k["registers"] for k in k1
+              for ne, nu, lux, t in [_k1_kernel(k["name"])] if (ne, nu) == (12, 12)}
+    _check(twelve == K1_PTXAS_12X12,
+           f"K1's 12 x 12 instantiations' registers {twelve}, expected {K1_PTXAS_12X12}")
     k4_report = kbuild.ptxas_report(libs[1])
-    k4_f32 = [k for k in k4_report if "IfE" in k["name"]]  # the float instantiations
-    _check(len(k4_report) == 4 and len(k4_f32) == 2
-           and all(k["stack"] == k["stores"] == k["loads"] == 0 for k in k4_f32),
-           f"K4 spills in f32 or ptxas reported other kernels than its four: {k4_report}")
+    k4_lines = {(m[1], m[2]): k["registers"] for k in k4_report
+                for m in [re.search(r"(assoc_backward|assoc_scan)_kernelI([fd])", k["name"])]
+                if k["stack"] == k["stores"] == k["loads"] == 0}
+    _check(len(k4_report) == 4 and k4_lines == K4_PTXAS,
+           f"K4's ptxas lines moved: {k4_report}, expected {K4_PTXAS} registers, no stack, "
+           f"no spill")
     k7_report = kbuild.ptxas_report(libs[2])
     _check(len(k7_report) == 2 and all(k["stores"] == k["loads"] == 0 for k in k7_report),
            f"K7 spills (f32 or f64) or ptxas reported other kernels than its two: {k7_report}")
@@ -4590,14 +4923,16 @@ def main(argv) -> int:
     hardware_only = argv == ["--hardware-only"]
     baselines = dict(zip(argv[1::2], argv[2::2]))
     kernels_only = (argv[:1] == ["--kernels-only"] and len(argv) % 2 == 1
-                    and set(baselines) <= {"--k7-baseline", "--k2-baseline", "--k8-baseline"}
+                    and set(baselines) <= {"--k7-baseline", "--k2-baseline", "--k8-baseline",
+                                           "--k1-baseline"}
                     and len(baselines) == len(argv) // 2)
     workers = {**WORKERS, **ACT_WORKERS, **HW_WORKERS, "hardware-threaded": phase_hw_threaded,
                "hardware-peer-profile": _worker_hw_peer_profile,
                **{name: _worker_hw_walk(name) for name in HW_FRESH_WALKS}}
     worker = argv[1] if len(argv) == 2 and argv[0] == "--worker" and argv[1] in workers else None
     if argv and not (kernels_only or worker or hardware_only):
-        print("usage: chip_smoke.py [--kernels-only [--k7-baseline SOURCE] [--k2-baseline SOURCE] "
+        print("usage: chip_smoke.py [--kernels-only [--k1-baseline SOURCE] [--k7-baseline SOURCE] "
+              "[--k2-baseline SOURCE] "
               "[--k8-baseline SOURCE[,SOURCE...]] "
               "| --hardware-only | "
               "--worker "
@@ -4660,6 +4995,9 @@ def main(argv) -> int:
         phase_small_kernel_vs_plain(device)
         phase_cross_term_vs_plain(device)
         phase_sweep_timing(device)
+        phase_k1_shape_timing(device)
+        if "--k1-baseline" in baselines:
+            phase_k1_baseline(device, baselines["--k1-baseline"])
         phase_scan_timing(device)
         phase_line_search_timing(device)
         phase_expansions_timing(device)
@@ -4673,6 +5011,7 @@ def main(argv) -> int:
     phase_assoc_quality(device)
     step = phase_timing(ctrl, inputs)                          # 6
     sweep_times = phase_sweep_timing(device)
+    k1_shape_times = phase_k1_shape_timing(device)
     scan_times, fused_times = phase_scan_timing(device)
     line_search_times = phase_line_search_timing(device)
     expansions_times = phase_expansions_timing(device)
@@ -4698,8 +5037,9 @@ def main(argv) -> int:
     single = {}
 
     def single_checks():
-        single["worst_f32"] = phase_small_kernel_vs_plain(device)
-        single["worst_f32_cross"] = phase_cross_term_vs_plain(device)
+        single["worst_f32"], single["differ"] = phase_small_kernel_vs_plain(device)
+        single["worst_f32_cross"], differ_cross = phase_cross_term_vs_plain(device)
+        single["differ"].update(differ_cross)
         single["solve"], single["tick"], single["bicycle"] = phase_single_counted(device)
 
     est = phase_estimated_fleet(device, smi, beside_workers=single_checks)
@@ -4709,7 +5049,7 @@ def main(argv) -> int:
     act = phase_actuated(device, smi)                          # 13
     hw = phase_hardware(device, smi)                           # 14
     fleet = phase_fleet(device, smi)                           # 15
-    sweep_times["f32 falling_cat ne=6 nu=3 N=40 B=4096 (through the wrapper)"] = cat["shape"]
+    sweep_times.update(k1_shape_times)
     per_tick = {"standing_2x5_B4096": stand_per, "walking_rti_1x3_B4096": walk_per,
                 "walking_rti_1x3_B1": one_per, "estimated_2x5_B4096": est["per_tick"],
                 "estimated_2x5_B1": est["per_tick_one"]}
@@ -4740,9 +5080,16 @@ def main(argv) -> int:
                              "per_scenario_srb_steps_B1": act["single_k1"],
                              **hw["k1_launches"], **fleet["k1_launches"]},
         "max_abs_err": worst_f32,
-        # over phase 12's embedded shapes, whose outputs reach 8e4 (dV1 of the
-        # double integrator): each is held relative to its own scale
+        # over phase 12's shapes below 12 x 12, whose outputs reach 8e4 (dV1 of
+        # the double integrator): each is held relative to its own scale
         "max_abs_err_embedded_shapes": worst_f32_small,
+        # phase 12's launches at each instantiation against the parent's
+        # (embedded in 12 x 12) on the same inputs: [elements that differ, of]
+        "elements_differing_from_12x12_launch": single["differ"],
+        # every instantiation: its time at a path's shape beside its bound
+        "instantiations": {tag: {k: t[k] for k in ("ms", "bound_ms", "share_of_bound")}
+                           for tag, t in {f"{_shape_tag(*K1_TIMED[0])} (12x12)": sweep_main,
+                                          **k1_shape_times}.items()},
         "max_abs_err_with_cross_term": single["worst_f32_cross"],
         "ms": sweep_main["ms"],
         "plain_ms": sweep_main["plain_ms"],

@@ -5,10 +5,11 @@ pass) and K8 (the knot expansions) spend their clocks on the card.
     python3 k1_phase_clocks.py k1       # or k4, or k8
 
 K1: builds `quaternion_mpc_tpu_torch/csrc/riccati_sweep.cu` a second time with
--DK1_PHASE_CLOCKS, which makes lane 0 of the first warp of the middle block
-stamp clock64() after every phase of every knot, launches it on the main
-path's expansions (f32) at a few shapes and prints the mean clocks of each
-phase over the knots after the first. One warp's view: at B=1 it is the
+-DK1_PHASE_CLOCKS, which makes lane 0 of the first scenario of the middle
+block stamp clock64() after every phase of every knot, launches it on the
+main path's expansions and on falling_cat's and the humanoid's, each at its
+own instantiation (f32), at a few shapes and prints the mean clocks of each
+phase over the knots after the first. One scenario's view: at B=1 it is the
 length of the serial chain, at large B every phase is stretched by the other
 warps of the SM.
 
@@ -50,7 +51,11 @@ PHASES = (
     "wait+barrier", "stage knot k-1", "write gains k+1", "AtV BtV Qx Qu", "Qxx Quu Qux",
     "Gauss-Jordan", "KtQuu dV", "Vxx Vx", "symmetrise",
 )
-SHAPES = ((10, 1), (20, 1), (10, 256), (10, 4096), (10, 16384))  # (N, B)
+# (problem, N, B): the main path's 12 x 12 expansions, falling_cat's (6 x 3)
+# and the humanoid's (12 x 6), each at its own instantiation
+SHAPES = (("go1", 10, 1), ("go1", 20, 1), ("go1", 10, 256), ("go1", 10, 4096),
+          ("go1", 10, 16384), ("falling_cat", 40, 1), ("falling_cat", 40, 4096),
+          ("humanoid", 20, 256))
 
 # K4's stamp codes (csrc/assoc_scan.cu `Code`): what ended just before.
 K4_BARRIER, K4_STORED = 3, 4
@@ -201,20 +206,25 @@ def main(argv) -> int:
     if "k1" not in which:
         return 0
     lib = ctypes.CDLL(str(kbuild.build(rs.SOURCE, ("-DK1_PHASE_CLOCKS",))))
-    lib.riccati_sweep_f32.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int, ctypes.c_int,
-                                                              ctypes.c_void_p]
+    lib.riccati_sweep_f32.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 15 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.riccati_sweep_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
     lib.riccati_sweep_f32.restype = lib.riccati_sweep_clocks.restype = ctypes.c_int
 
-    for horizon, batch in SHAPES:
-        args = chip_smoke._sweep_inputs(batch, torch.float32, device, horizon)
-        outs = [torch.empty((horizon, 12, 12, batch), device=device),
-                torch.empty((horizon, 12, batch), device=device)]
+    for problem, horizon, batch in SHAPES:
+        if problem == "go1":
+            args = chip_smoke._sweep_inputs(batch, torch.float32, device, horizon)
+        else:
+            args = chip_smoke._family_first_pass(problem, horizon, batch, torch.float32, device)
+        ne, nu = args[0].shape[1], args[1].shape[2]
+        outs = [torch.empty((horizon, nu, ne, batch), device=device),
+                torch.empty((horizon, nu, batch), device=device)]
         outs += [torch.empty(batch, device=device) for _ in range(3)]
+        pointers = [t.data_ptr() for t in args[:6]] + [None]
+        pointers += [t.data_ptr() for t in (*args[6:], *outs)]
         stream = torch.cuda.current_stream().cuda_stream
         for _ in range(3):
-            err = lib.riccati_sweep_f32(*(t.data_ptr() for t in (*args, *outs)),
-                                        horizon, batch, stream)
+            err = lib.riccati_sweep_f32(ne, nu, *pointers, horizon, batch, stream)
             if err != 0:
                 raise RuntimeError(f"launch failed with CUDA error {err}")
         torch.cuda.synchronize()
@@ -227,8 +237,9 @@ def main(argv) -> int:
             raise RuntimeError("reading the stamps failed")
         per_knot = np.diff(stamps[1:]).reshape(horizon, len(PHASES))
         later = per_knot[1:].mean(0)
-        print(f"[clocks] f32 N={horizon} B={batch}: {later.sum():.0f} clocks a knot (first knot "
-              f"{per_knot[0].sum()}; two stamps back to back {stamps[1] - stamps[0]}): "
+        print(f"[clocks] f32 {problem} ne={ne} nu={nu} N={horizon} B={batch}: {later.sum():.0f} "
+              f"clocks a knot (first knot {per_knot[0].sum()}; two stamps back to back "
+              f"{stamps[1] - stamps[0]}): "
               + ", ".join(f"{name} {c:.0f}" for name, c in zip(PHASES, later)))
     return 0
 

@@ -14,29 +14,28 @@ knot at the peak rate outside the tensor cores (TF32 breaks the solver's converg
 the matrices are 12 wide). Every scenario is a serial chain of N knots, so
 the design has to hide that chain's latency and that of its loads.
 
-Design (csrc/riccati_sweep.cu): a block owns a tile of 8 consecutive
-scenarios, one warp each. The warp shares the 12x12 products (a 2x3 block of
-outputs a lane) and runs the 12x25 Gauss-Jordan in registers, a column a
-lane, the pivot column broadcast by shuffles, in the plain version's order.
-The working set (~2.5k values a scenario) lives in shared memory, not in
-spilled registers. Each knot's slabs are staged once by the whole block with
-element-wide cp.async (coalesced along B, transposed on the way in, any B,
-the ragged tile masked), two stages deep: knot k-1 loads under knot k's
-arithmetic. K and d leave through a double-buffered shared tile and are
-written coalesced along B. Templated on float and double.
+Design (csrc/riccati_sweep.cu): one body templated on (ne, nu). A scenario
+has a warp at ne = 12, a group of 8 or 4 lanes of one below; a block of 256
+threads owns a tile of scenarios. The lanes share the products (at most 2x3
+outputs a lane) and run the Gauss-Jordan in registers, a column or two a
+lane, the pivot column broadcast by shuffles in the group, in the plain
+version's order. The working set lives in shared memory. Each knot's slabs
+are staged once by the whole block with element-wide cp.async (coalesced
+along B, transposed on the way in, any B, the ragged tile masked), two
+stages deep: knot k-1 loads under knot k's arithmetic. K and d leave through
+a double-buffered shared tile, written coalesced along B. Float and double.
 
-The device code is fixed at ne = nu = 12, the quaternion SRB with four
-feet. A smaller problem (the TPU kernel is generic in both) is embedded by
-the wrapper (`embed`): zeros in the added rows and columns of As, Bs, lxs,
-lxxs, lus, lxN, lxxN and the identity on the added diagonal of luus. The
-elimination runs the columns in order without pivoting and the added rows
-and columns couple to nothing, so the live block of Ks and ds, and dV1, dV2
-and max|Qu|, are those of the problem at its own size.
-
-A problem whose inequality has state rows carries a cost cross term
-``luxs`` (N, nu, ne, B), Qux = lux + BᵀVxxA. The kernel is instantiated with
-and without it: with it each knot stages one more slab; a problem without
-state rows runs the instantiation that has none of it.
+The device code is instantiated at the repo's problems' shapes
+(`INSTANTIATIONS`: 12 x 12, 12 x 6, 6 x 3, 4 x 2, 2 x 1; with the cross term
+``luxs`` (N, nu, ne, B), Qux = lux + BᵀVxxA, of a problem with state rows at
+12 x 12 and 4 x 2, one more slab staged a knot). Any other shape up to
+12 x 12 (the TPU kernel is generic) is embedded by the wrapper (`embed`) in
+the smallest instantiation that holds it: zeros in the added rows and
+columns of As, Bs, lxs, lxxs, lus, lxN, lxxN and the identity on the added
+diagonal of luus. The elimination runs the columns in order without
+pivoting and the added rows and columns couple to nothing, so the live block
+of Ks and ds, and dV1, dV2 and max|Qu|, are those of the problem at its own
+size.
 
 Source `csrc/riccati_sweep.cu`, compiled at first use with nvcc into
 `build/` (`kernels.build`, keyed by a hash of source and flags) and bound
@@ -61,7 +60,9 @@ NE = 12
 NU = 12
 SOURCE = _build.CSRC / "riccati_sweep.cu"
 _ENTRY = {torch.float32: "riccati_sweep_f32", torch.float64: "riccati_sweep_f64"}
-_ENTRY_LUX = {torch.float32: "riccati_sweep_lux_f32", torch.float64: "riccati_sweep_lux_f64"}
+# (ne, nu, lux) of the device code's instantiations (`K1_SHAPES` in the source)
+INSTANTIATIONS = ((12, 12, False), (12, 12, True), (12, 6, False), (6, 3, False),
+                  (4, 2, False), (4, 2, True), (2, 1, False))
 
 
 def build():
@@ -72,20 +73,36 @@ def build():
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    for pointers, entries in ((14, _ENTRY), (15, _ENTRY_LUX)):
-        for name in entries.values():
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int, ctypes.c_int,
-                                                          ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-    lib.riccati_sweep_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    for name in _ENTRY.values():
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 15 + [ctypes.c_int, ctypes.c_int,
+                                                                    ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.riccati_sweep_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.riccati_sweep_smem_bytes.restype = ctypes.c_int
+    lib.riccati_sweep_shapes.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.riccati_sweep_shapes.restype = ctypes.c_int
+    shapes = (ctypes.c_int * (3 * len(INSTANTIATIONS)))()
+    count = lib.riccati_sweep_shapes(shapes, len(shapes))
+    built = {(shapes[3 * i], shapes[3 * i + 1], bool(shapes[3 * i + 2])) for i in range(count)}
+    if count != len(INSTANTIATIONS) or built != set(INSTANTIATIONS):
+        raise RuntimeError(f"{SOURCE.name} is built at {count} shapes, not at INSTANTIATIONS")
     return lib
 
 
-def shared_bytes(dtype, lux: bool = False) -> int:
-    """Dynamic shared memory of one block of the kernel, as compiled."""
-    return _lib().riccati_sweep_smem_bytes(int(dtype == torch.float64), int(lux))
+def shared_bytes(dtype, lux: bool = False, ne: int = NE, nu: int = NU) -> int:
+    """Dynamic shared memory of one block of the instantiation at (ne, nu),
+    as compiled."""
+    return _lib().riccati_sweep_smem_bytes(int(dtype == torch.float64), ne, nu, int(lux))
+
+
+@functools.cache
+def instantiation(ne: int, nu: int, lux: bool = False) -> tuple[int, int]:
+    """(NE, NU) of the instantiation a problem at (ne, nu) is launched at:
+    its own where there is one, else the one that holds it with the fewest
+    values a knot (`embed`)."""
+    holds = [(e, u) for e, u, x in INSTANTIATIONS if x == lux and e >= ne and u >= nu]
+    return min(holds, key=lambda s: (work(1, 1, torch.float32, *s, lux)["bytes"], s))
 
 
 def macs_per_knot(ne: int = NE, nu: int = NU) -> int:
@@ -132,7 +149,7 @@ def check_expansions(As, Bs, lxs, lxxs, lus, luus, lxN, lxxN, reg, what="riccati
     nu = Bs.shape[2]
     if fixed_size and (ne, nu) != (NE, NU):
         raise ValueError(
-            f"{what} is built for ne = nu = {NE} only (the sweep backend embeds "
+            f"{what} is built for ne = nu = {NE} only (the sweep backend takes "
             f"smaller problems), got ne = {ne}, nu = {nu}"
         )
     if not (1 <= ne <= NE and 1 <= nu <= NU):
@@ -167,21 +184,22 @@ def check_expansions(As, Bs, lxs, lxxs, lus, luus, lxN, lxxN, reg, what="riccati
 
 
 @functools.cache
-def _added_diagonal(nu: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """(NU, NU, 1): ones on the diagonal entries an embedded luus adds."""
-    diag = torch.zeros((NU,), dtype=dtype, device=device)
+def _added_diagonal(nu: int, size: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """(size, size, 1): ones on the diagonal entries an embedded luus adds."""
+    diag = torch.zeros((size,), dtype=dtype, device=device)
     diag[nu:] = 1.0
     return torch.diag(diag)[..., None]
 
 
-def embed(As, Bs, lxs, lxxs, lus, luus, lxN, lxxN, reg, luxs=None):
-    """The expansions of a problem with ne, nu <= 12 as those of a 12 x 12
-    one with the same live gains: zeros in the added rows and columns, the
-    identity on the added diagonal of luus (so that Quu + reg·I stays
-    regular; its added rows have zero right-hand sides and solve to zero).
-    With ``luxs`` the embedded cross term comes back as a tenth tensor."""
+def embed(As, Bs, lxs, lxxs, lus, luus, lxN, lxxN, reg, luxs=None, size=(NE, NU)):
+    """The expansions of a problem with ne, nu <= size as those of a
+    size[0] x size[1] one with the same live gains: zeros in the added rows
+    and columns, the identity on the added diagonal of luus (so that Quu +
+    reg·I stays regular; its added rows have zero right-hand sides and solve
+    to zero). With ``luxs`` the embedded cross term comes back as a tenth
+    tensor."""
     ne, nu = As.shape[1], Bs.shape[2]
-    de, du = NE - ne, NU - nu
+    de, du = size[0] - ne, size[1] - nu
     pad = torch.nn.functional.pad
     # pad takes the last axis first: (B: 0, 0), then columns, then rows
     big = (
@@ -190,7 +208,7 @@ def embed(As, Bs, lxs, lxxs, lus, luus, lxN, lxxN, reg, luxs=None):
         pad(lxs, (0, 0, 0, de)),
         pad(lxxs, (0, 0, 0, de, 0, de)),
         pad(lus, (0, 0, 0, du)),
-        pad(luus, (0, 0, 0, du, 0, du)) + _added_diagonal(nu, As.device, As.dtype),
+        pad(luus, (0, 0, 0, du, 0, du)) + _added_diagonal(nu, size[1], As.device, As.dtype),
         pad(lxN, (0, 0, 0, de)),
         pad(lxxN, (0, 0, 0, de, 0, de)),
         reg,
@@ -207,8 +225,9 @@ def riccati_sweep(As, Bs, lxs, lxxs, lus, luus, lxN, lxxN, reg, luxs=None):
     rows the cost's cross term luxs (N, nu, ne, B); all contiguous, one dtype
     (float32 or float64), one device.
     Returns (Ks (N, nu, ne, B), ds (N, nu, B), dV1 (B,), dV2 (B,), gmax (B,));
-    on the card Ks and ds of an embedded problem are views of the 12 x 12
-    launch's outputs.
+    on the card a problem at its own instantiation's size is launched as it
+    is, any other embedded (`instantiation`), and its Ks and ds are views of
+    the launch's outputs.
     """
     inputs = (As, Bs, lxs, lxxs, lus, luus, lxN, lxxN, reg)
     ne, nu = check_expansions(*inputs, luxs=luxs)
@@ -216,27 +235,27 @@ def riccati_sweep(As, Bs, lxs, lxxs, lus, luus, lxN, lxxN, reg, luxs=None):
         return riccati_sweep_ref(*inputs, luxs=luxs)
     if As.device.type != "cuda":
         raise ValueError(f"riccati_sweep runs on cpu or cuda tensors, not {As.device}")
-    if (ne, nu) != (NE, NU):
-        inputs = embed(*inputs, luxs=luxs)
+    size = instantiation(ne, nu, luxs is not None)
+    if size != (ne, nu):
+        inputs = embed(*inputs, luxs=luxs, size=size)
         if luxs is not None:
             inputs, luxs = inputs[:9], inputs[9]
-    entries = _ENTRY
-    if luxs is not None:  # the C interface takes it after luus
-        inputs = inputs[:6] + (luxs,) + inputs[6:]
-        entries = _ENTRY_LUX
     N, B = As.shape[0], As.shape[-1]
-    Ks = torch.empty((N, NU, NE, B), dtype=As.dtype, device=As.device)
-    ds = torch.empty((N, NU, B), dtype=As.dtype, device=As.device)
+    Ks = torch.empty((N, size[1], size[0], B), dtype=As.dtype, device=As.device)
+    ds = torch.empty((N, size[1], B), dtype=As.dtype, device=As.device)
     dV1, dV2, gmax = (torch.empty_like(reg) for _ in range(3))
     outputs = (Ks, ds, dV1, dV2, gmax)
-    fn = getattr(_lib(), entries[As.dtype])
+    # the C interface takes luxs after luus, null without the cross term
+    pointers = [t.data_ptr() for t in inputs[:6]] + [None if luxs is None else luxs.data_ptr()]
+    pointers += [t.data_ptr() for t in inputs[6:] + outputs]
+    fn = getattr(_lib(), _ENTRY[As.dtype])
     with torch.cuda.device(As.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(t.data_ptr() for t in inputs + outputs), N, B, stream)
+        err = fn(*size, *pointers, N, B, stream)
     if err != 0:
-        raise RuntimeError(f"riccati_sweep kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"riccati_sweep kernel launch at {size} failed with CUDA error {err}")
     riccati_sweep.launches += 1
-    if (ne, nu) != (NE, NU):
+    if size != (ne, nu):
         return (Ks[:, :nu, :ne], ds[:, :nu], dV1, dV2, gmax)
     return outputs
 

@@ -101,19 +101,22 @@ inline void __named_sync(int id, int threads) {
 }
 inline void __syncwarp() { emulation::wait(emulation::of_warp[threadIdx.x >> 5]); }
 
+// With a width below 32 the warp is cut into segments of that many lanes and
+// source_lane counts from the start of the caller's segment.
 template <typename T>
-inline T __shfl_sync(unsigned, T value, int source_lane) {
+inline T __shfl_sync(unsigned, T value, int source_lane, int width = 32) {
   auto& slots = emulation::exchange[threadIdx.x >> 5];
-  slots[threadIdx.x & 31] = static_cast<double>(value);
+  const int lane = threadIdx.x & 31;
+  slots[lane] = static_cast<double>(value);
   __syncwarp();
-  const T got = static_cast<T>(slots[source_lane]);
+  const T got = static_cast<T>(slots[(lane & ~(width - 1)) + (source_lane & (width - 1))]);
   __syncwarp();
   return got;
 }
 
 template <typename T>
-inline T __shfl_xor_sync(unsigned mask, T value, int lane_mask) {
-  return __shfl_sync(mask, value, (threadIdx.x & 31) ^ lane_mask);
+inline T __shfl_xor_sync(unsigned mask, T value, int lane_mask, int width = 32) {
+  return __shfl_sync(mask, value, (threadIdx.x & 31) ^ lane_mask, width);
 }
 
 // Bit l of the result is lane l's predicate, for every lane of the warp.

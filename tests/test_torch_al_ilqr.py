@@ -465,8 +465,9 @@ def _random_expansions(ne, nu, N, B, dtype, seed=0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("ne,nu", [(12, 6), (6, 3), (2, 1), (4, 2), (12, 12)])
 def test_k1_embedding_is_exact(ne, nu, dtype):
-    """What the card runs for a small problem (the 12 x 12 sweep on `embed`'s
-    inputs, sliced) against the plain sweep at the problem's own size. The
+    """The 12 x 12 sweep on `embed`'s inputs, sliced (what the card runs for a
+    shape with no instantiation of its own, into the instantiation that holds
+    it), against the plain sweep at the problem's own size. The
     elimination takes the columns in order without pivoting and the added
     rows and columns couple to nothing: the added gains are exactly 0, and
     the live block is the native one up to the order of its sums. On this
@@ -521,6 +522,75 @@ def test_k1_work_counts_the_problem_at_its_own_size():
     plain, cross = (rs.work(30, 1, torch.float64, ne=4, nu=2, lux=lux) for lux in (False, True))
     assert cross["bytes"] - plain["bytes"] == 8 * 30 * 8 and cross["flops"] == plain["flops"]
 
+
+# (ne, nu, lux) -> the instantiation K1 launches: its own, or the one with the
+# fewest values a knot that holds it (then through `embed`)
+K1_DISPATCH = [
+    ((12, 12, False), (12, 12)), ((12, 12, True), (12, 12)), ((12, 6, False), (12, 6)),
+    ((6, 3, False), (6, 3)), ((4, 2, False), (4, 2)), ((4, 2, True), (4, 2)),
+    ((2, 1, False), (2, 1)), ((5, 3, False), (6, 3)), ((3, 3, False), (6, 3)),
+    ((3, 1, False), (4, 2)), ((1, 1, False), (2, 1)), ((8, 2, False), (12, 6)),
+    ((7, 5, False), (12, 6)), ((12, 7, False), (12, 12)), ((6, 3, True), (12, 12)),
+    ((2, 1, True), (4, 2)), ((12, 6, True), (12, 12)),
+]
+
+
+@pytest.mark.parametrize("shape, want", K1_DISPATCH, ids=[f"{e}x{u}{'-lux' * x}"
+                                                         for (e, u, x), _ in K1_DISPATCH])
+def test_k1_dispatch_picks_the_instantiation(shape, want):
+    """`riccati_sweep` on the card launches the instantiation that matches
+    (ne, nu, lux), and embeds any other shape in the smallest that holds it
+    (what `instantiation` answers is what the wrapper launches)."""
+    ne, nu, lux = shape
+    assert rs.instantiation(ne, nu, lux) == want
+    assert (want + (lux,)) in rs.INSTANTIATIONS
+    assert (shape in rs.INSTANTIATIONS) == (want == (ne, nu))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("ne,nu,size", [(5, 3, (6, 3)), (3, 1, (4, 2)), (1, 1, (2, 1)),
+                                        (7, 5, (12, 6)), (6, 3, (12, 6)), (2, 1, (4, 2))])
+def test_k1_embedding_into_a_smaller_instantiation(ne, nu, size, dtype):
+    """`embed` with a target size: the plain sweep on the embedded inputs
+    gives added gains of exactly 0 and, in its live block, the plain sweep at
+    the problem's own size up to the order of torch's CPU sums (as
+    `test_k1_embedding_is_exact` explains); with the cross term too."""
+    args = _random_expansions(ne, nu, N=6, B=4, dtype=dtype, seed=ne * 7 + nu)
+    g = torch.Generator().manual_seed(ne + nu)
+    luxs = (0.3 * torch.randn(6, nu, ne, 4, generator=g, dtype=torch.float64)).to(dtype)
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    for cross in (None, luxs):
+        big = rs.embed(*args, luxs=cross, size=size)
+        assert big[0].shape == (6, *size[:1] * 2, 4) and big[1].shape == (6, size[0], size[1], 4)
+        assert len(big) == 9 + (cross is not None)
+        Ks, ds, dV1, dV2, gmax = rs.riccati_sweep_ref(*big[:9], luxs=big[9] if len(big) > 9
+                                                      else None)
+        assert Ks.shape == (6, size[1], size[0], 4)
+        assert torch.count_nonzero(Ks[:, nu:]) == 0 and torch.count_nonzero(Ks[:, :, ne:]) == 0
+        assert torch.count_nonzero(ds[:, nu:]) == 0
+        want = rs.riccati_sweep_ref(*args, luxs=cross)
+        for name, got, w in zip(("Ks", "ds", "dV1", "dV2", "gmax"),
+                                (Ks[:, :nu, :ne], ds[:, :nu], dV1, dV2, gmax), want):
+            err = float((got - w).abs().max() / w.abs().max())
+            assert err <= tol, (name, err)
+
+
+def test_k1_work_at_each_instantiation():
+    """`work`, the bound's count, at each instantiation's own size: per knot
+    As and lxxs ne² each, Bs ne·nu, luus nu², lxs ne, lus nu, the cross term
+    nu·ne, Ks nu·ne and ds nu; per scenario lxN, lxxN, reg, dV1, dV2, gmax;
+    two operations a multiply-add (`macs_per_knot`). The launch's shared
+    memory at each is held in tests/test_torch_sweep_emulation.py (the
+    source's `riccati_sweep_smem_bytes`, which `shared_bytes` reads)."""
+    for ne, nu, lux in rs.INSTANTIATIONS:
+        for dtype, size in ((torch.float32, 4), (torch.float64, 8)):
+            w = rs.work(40, 4096, dtype, ne, nu, lux)
+            knot = 2 * ne * ne + ne * nu + nu * nu + ne + nu + (1 + lux) * nu * ne + nu
+            assert w["bytes"] == 4096 * size * (40 * knot + ne + ne * ne + 4), (ne, nu, lux)
+            assert w["flops"] == 2 * rs.macs_per_knot(ne, nu) * 40 * 4096
+    # falling_cat: products 2·6³ + 5·6²·3 + 2·6·3², the 3 x 10 elimination
+    # 2·(9 + 8 + 7), the matrix-vector products 6² + 4·6·3 + 3² + 2·3
+    assert rs.macs_per_knot(6, 3) == 1080 + 48 + 123
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("ne,nu", [(4, 2), (6, 3), (12, 12)])

@@ -117,6 +117,56 @@ def test_sweep_ref_matches_pallas_kernel():
     _assert_sweep_near_f64(plain, want64, "plain f32")
 
 
+
+def _numpy_expansions(ne, nu, horizon, batch, seed):
+    """Well-posed f32 sweep inputs at (ne, nu) from a numpy seed: contracting
+    As, SPD lxx, luu and lxxN, reg 1e-6."""
+    rng = np.random.default_rng(seed)
+    r = lambda *s: rng.standard_normal(s)
+
+    def spd(n, *lead):
+        m = r(*lead, n, n, batch)
+        return np.einsum("...ikb,...jkb->...ijb", m, m) + 0.5 * np.eye(n)[..., None]
+
+    out = (0.3 * r(horizon, ne, ne, batch) + np.eye(ne)[..., None], 0.2 * r(horizon, ne, nu, batch),
+           r(horizon, ne, batch), spd(ne, horizon), r(horizon, nu, batch), spd(nu, horizon),
+           r(ne, batch), spd(ne), np.full((batch,), 1e-6))
+    return [a.astype(np.float32) for a in out]
+
+
+# the shapes K1's instantiations below 12 x 12 serve: falling_cat, the
+# humanoid, the bicycle and the double integrator
+@pytest.mark.parametrize("ne, nu", [(6, 3), (12, 6), (4, 2)])
+def test_sweep_ref_matches_pallas_kernel_at_its_own_size(ne, nu):
+    """riccati_sweep_ref at the problem's (ne, nu) and the TPU kernel itself
+    (riccati_sweep_pallas, interpret mode) on the same f32 inputs (a numpy
+    seed) at N=6 and a B the Pallas kernel takes (128), each against
+    riccati_sweep_ref in f64 at (ne, nu) (F32_SWEEP_RTOL). The TPU kernel
+    symmetrises Vxx through an nu x nu identity broadcast to ne x ne
+    (experiments/pallas_fleet.py:146), so it takes ne == nu only: it gets the
+    problem with nu raised to ne by `embed` (zero columns of Bs, the identity
+    on luus's added diagonal), and its live block of Ks and ds is compared."""
+    spec_ = importlib.util.spec_from_file_location(
+        "pallas_fleet", REPO / "experiments" / "pallas_fleet.py"
+    )
+    pallas_fleet = importlib.util.module_from_spec(spec_)
+    spec_.loader.exec_module(pallas_fleet)
+
+    B, horizon = 128, 6
+    targs = [torch.from_numpy(a).contiguous()
+             for a in _numpy_expansions(ne, nu, horizon, B, seed=ne * 16 + nu)]
+    square = rs.embed(*targs, size=(ne, ne))
+    pallas = pallas_fleet.riccati_sweep_pallas(*(jnp.asarray(t.numpy()) for t in square),
+                                               interpret=True)
+    assert pallas is not None and pallas[0].shape == (horizon, ne, ne, B)
+    Ks, ds = np.asarray(pallas[0]), np.asarray(pallas[1])
+    assert not Ks[:, nu:].any() and not ds[:, nu:].any()
+    pallas = (Ks[:, :nu], ds[:, :nu], *pallas[2:])
+    plain = rs.riccati_sweep_ref(*targs)
+    want64 = rs.riccati_sweep_ref(*(t.double() for t in targs))
+    _assert_sweep_near_f64(pallas, want64, f"pallas {ne}x{nu}")
+    _assert_sweep_near_f64(plain, want64, f"plain f32 {ne}x{nu}")
+
 def test_sweep_f32_spread_from_f64():
     """The f32 plain sweep against the f64 sweep on the port's own
     expansions of standing_batch at a ragged B=1000 (F32_SWEEP_RTOL; the

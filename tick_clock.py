@@ -32,9 +32,11 @@ Prints the card's name and power limit, then one JSON object:
   N=40, 3 AL x 25 iLQR, 12 alphas): p50 / min / max ms of 3 solves after 1
   warm-up, and the solve cut to 1 x 5: p50 / min / max ms of 5 after 1
   warm-up and the device operations of one traced, with its `expansions`
-  ranges as the convex step's.
+  ranges as the convex step's;
+- one whole falling_cat 3 x 25 solve traced: its device operations (~75k),
+  busy ms and each hand-written kernel's launches and device ms.
 It uses only functions the port has had since its hardware loop was graphed,
-and `chip_smoke.py`'s helpers of the same checkout (the last two parts use
+and `chip_smoke.py`'s helpers of the same checkout (the last three parts use
 none of them).
 """
 
@@ -213,6 +215,15 @@ def falling_cat_solve(device):
                           **_trace(lambda: short(prob), ranges=("expansions",))}}
 
 
+def falling_cat_trace(device):
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.solver import al_ilqr
+
+    spec, prob, opts = examples.falling_cat_fleet(FLEET_B, torch.float32, device, seed=0)
+    solver = al_ilqr.make_solver(spec, opts)
+    return _trace(lambda: solver(prob))
+
+
 PARTS = {
     "hardware_tick_h6_1x3": lambda device: hardware_tick(device, 6, 1, 3),
     "hardware_tick_h8_2x3": lambda device: hardware_tick(device, 8, 2, 3),
@@ -221,6 +232,7 @@ PARTS = {
     "line_search_f32_N10_K8_B4096": line_search,
     "convex_step_1x5_B4096": convex_step,
     "falling_cat_solve_3x25_B4096": falling_cat_solve,
+    "falling_cat_trace_3x25_B4096": falling_cat_trace,
 }
 
 
