@@ -7,6 +7,7 @@
     python3 chip_smoke.py --kernels-only --k2-baseline OLD.cu   # and K2 held bit for bit and timed beside another
     python3 chip_smoke.py --kernels-only --k8-baseline OLD.cu[,OTHER.cu]   # and K8 the same
     python3 chip_smoke.py --hardware-only  # phases 1-2, 14 and 15: the hardware loop, the fleet over ranks, the CLI; no result line
+    python3 chip_smoke.py --graphs-only    # phases 1-2 and 16: the entry points' CUDA graphs against eager; no result line
 
 Phases, each printing its results (any failure raises, so the script exits
 non-zero before the last line):
@@ -181,7 +182,9 @@ non-zero before the last line):
    golden C++ fixtures (quat N=20, trot nu=6, convex N=30 forward Euler) at
    default options in f64, one problem and B=256, against the JSON at the
    JAX tests' bounds; the three branch scenarios at their own sizes in f64
-   against tests/test_branch_configs.py's open-loop bounds; the falling_cat
+   against tests/test_branch_configs.py's open-loop bounds, each through
+   `solve_scenario` twice (the first call captures its graph, the second
+   replays the kept graph: al x ilqr launches, the first's bits); the falling_cat
    receding loop in f64 to tick 50 (error < 0.05), 16 K1 and 16 K2 launches a tick, one
    tick under `set_sync_debug_mode("error")`.
 
@@ -259,6 +262,39 @@ non-zero before the last line):
    the same carry, its all_reduce calls through NCCL in a traced tick
    (and the NCCL kernels the trace shows, printed); exactly 10 / 8 K1 a
    standing / walking tick.
+
+16. the entry points' CUDA graphs (`utils.graphs.Graphed`, replayed where
+   the JAX package jits), each against the eager call of the same library
+   function on the same inputs, every output's elements compared (0 may
+   differ) and the graph's kernel launches a replay held (al x ilqr of K1
+   or K4's fused entry, K2 and K8; one K7 an actuated tick), with its
+   warm-up and capture seconds and its pool's bytes: `cli bench_solver`'s
+   controller (2 x 5, 8 alphas) at B in {1, 256, 4096, 16384} in f32 and
+   B=256 in f64, a second set of inputs replayed too, and the convex one at
+   B=4096; chained ticks as the CLI's loops replay them: the standing fleet
+   (B=4096, pushed), the walking RTI fleet (B=4096), the actuated fleet and
+   its estimated step (B=64), `viz_forces`' one robot, the estimated fleet
+   with its noise from a CUDA generator registered with the graph (ten
+   replays against ten eager ticks from the same generator state);
+   `scaling_report_fleet` at one rank; `solve_scenario`'s falling_cat
+   solve, the falling_cat fleet (B=4096, 3 x 25) and `run_closed_loop`'s
+   receding tick; one `solve_scenario` call timed as the parent tree ran
+   it (eager), as its first call (warm-ups, capture, replay) and as a later
+   call with the same arguments (a replay of the graph it keeps), in turns.
+   The controller's step and `make_solver`'s solve run once
+   under `set_sync_debug_mode("error")`. The CLI's commands bench_solver,
+   run_standing (pushed), run_trot, run_actuated (and --kf_type 1) and
+   run_scenario (falling_cat, open and closed loop) run in this process,
+   each launching K1, K2 and K8 exactly for its graphed calls and the
+   capture's warm-ups (an eager command runs no warm-up). The fleet step, the walking tick,
+   the convex step and the falling_cat solve are timed eager and graphed in
+   turns (p50 / min / max) and traced once each (device ops, busy ms, its
+   share of the p50); then B=1 replays under "assoc" and "sweep" in turns at
+   N=10 and 20 (2 x 5) and at the hardware tick's N=6 (1 x 3, 12 alphas).
+   Phase 15's `cli run_fleet` processes and phase 14's `cli bench_solver`
+   replay graphs as well; the closed-loop quality workers walking-f32,
+   walking-f64, walking-f32-moved and falling-cat-loop run their ticks
+   through the graphed loop.
 
 Then one JSON line describing each kernel (K2 one entry an instantiation:
 `line_search`, the quaternion SRB's, and `line_search[<instantiation>]`),
@@ -2092,13 +2128,15 @@ def phase_standing_fleet(device):
 
 
 def _walk_300(step, dtype, device, what, moved=0.0):
-    """WALK_TICKS ticks of the walking RTI fleet at 0.4 m/s, exactly al x
-    ilqr K1 launches a tick and no K4; ``moved``: each robot's start position
+    """WALK_TICKS ticks of the walking RTI fleet at 0.4 m/s, replayed from a
+    CUDA graph of ``step`` as `cli run_trot` replays it, exactly al x ilqr K1
+    launches a tick and no K4; ``moved``: each robot's start position
     moved by seeded normal noise of that many metres. Returns (carry,
     per-robot mean vel_err and height_err over the last WALK_TAIL ticks,
     (K1, K4, K2) launches per tick, ms per tick of the run with one sync at
     its end)."""
     from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.utils.graphs import Graphed
 
     opts = _rti_opts()
     per_tick = opts.al_iterations * opts.ilqr_iterations
@@ -2107,8 +2145,12 @@ def _walk_300(step, dtype, device, what, moved=0.0):
         noise = np.random.default_rng(11).standard_normal((CLOSED_LOOP_B, 3))
         pos = carry.plant.pos + torch.from_numpy(moved * noise).to(device, dtype)
         carry = carry._replace(plant=carry.plant._replace(pos=pos))
+    # as the CLI's closed loop runs it: the tick a CUDA graph, replayed with
+    # the carry chained in its buffers (captured before the counts start)
+    graph = Graphed(step, chain=True)
+    graph.captured(carry, sp, joy, None)
     t0 = time.perf_counter()
-    carry, metrics, _, per = _drive(step, carry, sp, joy, WALK_TICKS, (per_tick, 0), what)
+    carry, metrics, _, per = _drive(graph, carry, sp, joy, WALK_TICKS, (per_tick, 0), what)
     ms = (time.perf_counter() - t0) / WALK_TICKS * 1e3
     tail = metrics[-WALK_TAIL:]
     vel_err = torch.stack([m.vel_err for m in tail]).mean(0)
@@ -2351,12 +2393,13 @@ def _est_opts():
 
 def _est_step(device, opts, kf_type=1, seed=0, **stds):
     """(the estimated step drawing its noise from a CUDA generator seeded
-    with ``seed``, the same step in `_drive`'s (carry, sp, joy, ext) form)."""
+    with ``seed``, the same step in `_drive`'s (carry, sp, joy, ext) form,
+    the generator or None)."""
     from quaternion_mpc_tpu_torch.runtime import step as rt
 
     gen = torch.Generator(device=device).manual_seed(seed) if stds else None
     step = rt.make_fleet_estimated_step(HORIZON, opts, kf_type=kf_type, generator=gen, **stds)
-    return step, lambda carry, sp, joy, ext=None: step(carry, sp, joy, None, ext)
+    return step, lambda carry, sp, joy, ext=None: step(carry, sp, joy, None, ext), gen
 
 
 def _est_err(carry):
@@ -2367,17 +2410,22 @@ def _est_quality(device, dtype, batch):
     """test_estimated_walking.py:42-82 on the card: EST_TICKS noisy ticks of
     the BasicKF fleet at 0.3 m/s, 2 x 4, initial velocities 0.05·N(0, 1)."""
     from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.utils.graphs import Graphed
 
     opts = _est_opts()
     per_tick = opts.al_iterations * opts.ilqr_iterations
-    _, drive = _est_step(device, opts, seed=7, **EST_TEST_STDS)
+    _, drive, gen = _est_step(device, opts, seed=7, **EST_TEST_STDS)
     carry, sp, joy = examples.estimated_batch(batch, HORIZON, dtype, device)
     vel = 0.05 * np.random.default_rng(5).standard_normal((batch, 3))
     carry = carry._replace(plant=carry.plant._replace(
         vel=torch.from_numpy(vel).to(device=device, dtype=dtype)))
-    what = f"estimated fleet {str(dtype)[6:]} B={batch}"
+    what = f"estimated fleet {str(dtype)[6:]} B={batch}, replayed from a CUDA graph"
+    # the tick replayed as the CLI's loops replay theirs, its generator
+    # registered with the graph (the capture leaves it as it found it)
+    graph = Graphed(drive, chain=True, generators=(gen,))
+    graph.captured(carry, sp, joy, None)
     t0 = time.perf_counter()
-    carry, _, _, _ = _drive(drive, carry, sp, joy, EST_TICKS, (per_tick, 0), what)
+    carry, _, _, _ = _drive(graph, carry, sp, joy, EST_TICKS, (per_tick, 0), what)
     ms = (time.perf_counter() - t0) / EST_TICKS * 1e3
     x, err = carry.plant.pos[:, 0], _est_err(carry)
     _check(bool(carry.alive.all()), f"{what}: {int((~carry.alive).sum())} robots down")
@@ -2396,14 +2444,17 @@ def _ekf_quality(device):
     fleet with mocap on, f64, 0.4 m/s. Returns (step, carry, sp, joy) at a
     tick where a mocap sample is due and fused."""
     from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.utils.graphs import Graphed
 
     b, dtype, opts = EST_F64_B, torch.float64, _est_opts()
     per_tick = opts.al_iterations * opts.ilqr_iterations
-    step, _ = _est_step(device, opts, kf_type=2)
+    step, _, _ = _est_step(device, opts, kf_type=2)
     carry, sp, joy = examples.estimated_batch(b, HORIZON, dtype, device, kf_type=2, velx=0.4)
     on = torch.ones((), dtype=torch.bool, device=device)
-    carry, _, _, _ = _drive(lambda c, s, j, ext: step(c, s, j, on, ext), carry, sp, joy,
-                            EKF_TICKS, (per_tick, 0), "EKF fleet")
+    graph = Graphed(lambda c, s, j, ext: step(c, s, j, on, ext), chain=True)
+    graph.captured(carry, sp, joy, None)
+    carry, _, _, _ = _drive(graph, carry, sp, joy, EKF_TICKS, (per_tick, 0),
+                            "EKF fleet, replayed from a CUDA graph")
     err = _est_err(carry)
     _check(bool(carry.alive.all()), f"EKF fleet: {int((~carry.alive).sum())} robots down")
     _check(err.max().item() < EKF_MAX_ERR,
@@ -2559,7 +2610,7 @@ def phase_estimated_fleet(device, smi, beside_workers=None):
     b = CLOSED_LOOP_B
     opts = SolverOptions(al_iterations=2, ilqr_iterations=5, max_linesearch=8)  # bench.py:305
     per_tick = opts.al_iterations * opts.ilqr_iterations
-    step, drive = _est_step(device, opts, seed=0, **EST_BENCH_STDS)
+    step, drive, _ = _est_step(device, opts, seed=0, **EST_BENCH_STDS)
     carry, sp, joy = examples.estimated_batch(b, HORIZON, torch.float32, device)
     for _ in range(2):
         step(carry, sp, joy)
@@ -2975,15 +3026,28 @@ def _hold_fixture(name, batch, device, path=None):
 def _hold_branches(device):
     """The three branch scenarios at their own sizes and options in f64, held
     to tests/test_branch_configs.py's open-loop bounds (:73-78, :124-129,
-    :182-191)."""
+    :182-191). `solve_scenario` keeps its solve's CUDA graph for later calls
+    with the same arguments: its first call launches each kernel al x ilqr
+    times in each of the GRAPH_WARMUP warm-up solves and in the replay, a
+    second call al x ilqr times (one replay of the kept graph) and gives the
+    first's solution bit for bit."""
     from quaternion_mpc_tpu_torch import scenarios
+    from quaternion_mpc_tpu_torch.utils.graphs import GRAPH_WARMUP
 
     weight = 12.84 * 9.81  # spider_dog's, carried by friction on the walls
     for name, per_solve in (("falling_cat", 75), ("humanoid", 60), ("spider_dog", 60)):
+        first = (GRAPH_WARMUP + 1) * per_solve
         (sol, summary), k1 = _counted(
             lambda: scenarios.solve_scenario(name, dtype=torch.float64, device=device),
-            f"{name} solve", per_solve, per_solve,
+            f"{name} solve, its first call", first, first,
             instantiation="attitude_midpoint" if name == "falling_cat" else "quat_srb_midpoint")
+        (again, summary2), k1_again = _counted(
+            lambda: scenarios.solve_scenario(name, dtype=torch.float64, device=device),
+            f"{name} solve, a second call", per_solve, per_solve,
+            instantiation="attitude_midpoint" if name == "falling_cat" else "quat_srb_midpoint")
+        _check(all(torch.equal(a, b) for a, b in zip(_tensors(again), _tensors(sol)))
+               and summary2 == summary, f"{name}: the second call's solution differs from "
+                                        f"the first's")
         us, xs = sol.us.cpu().numpy(), sol.xs.cpu().numpy()
         _check(np.isfinite(us).all() and np.isfinite(xs).all(), f"{name}: non-finite solution")
         if name == "falling_cat":
@@ -3002,7 +3066,9 @@ def _hold_branches(device):
                    and abs(f[:, 2].sum() - weight) <= 1e-3 * weight
                    and (press > 1.0).all() and (np.abs(f[:, 2]) <= 0.7 * press + 1e-5).all()
                    and np.abs(xs[-1, 7:13]).max() <= 1e-3, f"spider_dog: {summary}, f {f}")
-        print(f"[single] {name} f64, its own options: K1 launches {k1}, K2 {per_solve}, no K4; "
+        print(f"[single] {name} f64, its own options, replayed from a CUDA graph: K1 launches "
+              f"{k1} in the first call ({GRAPH_WARMUP} warm-ups, one replay; K2 and K8 as many), "
+              f"{k1_again} in a second (a replay of the kept graph, the same bits), no K4; "
               + ", ".join(f"{k} {v:.3e}" for k, v in summary.items()))
 
 
@@ -3016,12 +3082,18 @@ def _worker_single_quality(device):
 
 
 def _worker_cat_loop(device):
-    """Worker: `make_receding_step("falling_cat")` in f64 to tick 50, exactly
-    16 K1 and 16 K2 launches a tick, one tick under set_sync_debug_mode("error"); the
+    """Worker: `make_receding_step("falling_cat")` in f64 to tick 50, its tick
+    replayed from a CUDA graph, exactly 16 K1 and 16 K2 launches a tick, one
+    eager tick under set_sync_debug_mode("error"); the
     reference's bounds at tick 50 (error < 0.05) and on the torque box."""
     from quaternion_mpc_tpu_torch import scenarios
+    from quaternion_mpc_tpu_torch.utils.graphs import Graphed
 
     step, carry = scenarios.make_receding_step("falling_cat", dtype=torch.float64, device=device)
+    # as `scenarios.run_closed_loop` runs it: the tick a CUDA graph, replayed
+    # with the carry chained in its buffers; tick 2 runs the eager step
+    graph = Graphed(step, chain=True)
+    graph.captured(carry)
     errs, u_max = [], []
     t0 = time.perf_counter()
     for tick in range(CAT_LOOP_TICKS):
@@ -3034,7 +3106,7 @@ def _worker_cat_loop(device):
             finally:
                 torch.cuda.set_sync_debug_mode(mode)
         else:
-            (carry, m), _ = _counted(lambda: step(carry), f"falling_cat tick {tick}", 16, 16,
+            (carry, m), _ = _counted(lambda: graph(carry), f"falling_cat tick {tick}", 16, 16,
                                      instantiation="attitude_midpoint")
         errs.append(m["att_err"])
         u_max.append(m["u_max"])
@@ -3045,7 +3117,8 @@ def _worker_cat_loop(device):
            "falling_cat loop: non-finite state")
     _check(errs[50] < 0.05 and u_hi <= 8.2,
            f"falling_cat loop: att_err at tick 50 {errs[50]:.3e} (bound 0.05), max torque {u_hi:.3f}")
-    print(f"[single] falling_cat receding loop f64, 2x8 a tick, {CAT_LOOP_TICKS} ticks: K1 and K2 "
+    print(f"[single] falling_cat receding loop f64, 2x8 a tick, {CAT_LOOP_TICKS} ticks replayed "
+          f"from a CUDA graph: K1 and K2 "
           f"launches 16/tick each, no K4, tick 2 under set_sync_debug_mode('error'): no synchronising call; "
           f"att_err {errs[0]:.3f} -> {errs[25]:.3e} (tick 25) -> {errs[50]:.3e} (tick 50, bound "
           f"0.05), max torque {u_hi:.3f} N*m (box 8, bound 8.2); {ms:.1f} ms/tick beside the "
@@ -3573,8 +3646,9 @@ def _actuated_quality(device, dtype, batch, kf_type):
     of 0.3 m, x > 0.8 m, the joints moving (max |dq| > 0.1). kf_type 1, the
     BasicKF in the loop (test_estimated_actuated.py:29-45): alive, the
     velocity bound, x > 0.8 m, the mean est_err over the last 150 ticks <
-    0.05 m, the joints moving."""
+    0.05 m, the joints moving. The tick is replayed from a CUDA graph."""
     from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.utils.graphs import Graphed
     from quaternion_mpc_tpu_torch.runtime import step as rt
 
     if kf_type is None:
@@ -3587,14 +3661,18 @@ def _actuated_quality(device, dtype, batch, kf_type):
     carry, sp, joy = examples.actuated_batch(batch, dtype, device, kf_type=kf_type, velx=0.4)
     vel_x, height, est_err = [], [], []
 
-    def record(c, m):
-        vel_x.append(c.robot.torso.vel[:, 0])
-        height.append(c.robot.torso.pos[:, 2])
+    def record(c, m):  # the carry is the graph's buffer: its rows are copied
+        vel_x.append(c.robot.torso.vel[:, 0].clone())
+        height.append(c.robot.torso.pos[:, 2].clone())
         if kf_type is not None:
             est_err.append(m.est_err)
 
+    # the tick replayed as `cli run_actuated` replays it
+    graph = Graphed(step, chain=True)
+    graph.captured(carry, sp, joy)
+    what += ", replayed from a CUDA graph"
     t0 = time.perf_counter()
-    carry, _, _, _, _ = _drive_actuated(step, carry, sp, joy, ACT_QUALITY_TICKS, what,
+    carry, _, _, _, _ = _drive_actuated(graph, carry, sp, joy, ACT_QUALITY_TICKS, what,
                                         record=record)
     ms = (time.perf_counter() - t0) / ACT_QUALITY_TICKS * 1e3
     vel = torch.stack(vel_x[-ACT_TAIL:]).mean(0)
@@ -4749,6 +4827,9 @@ def phase_fleet(device, smi):
                 carry, sp, joy, step = refs[0.0][3:]
                 sharded = mesh_mod.fleet_shard(step, m)
                 shards = [mesh_mod.shard_batch(t, m) for t in (carry, sp, joy)]
+                # the rank's part is a CUDA graph: this call captures it (its
+                # warm-ups launch eagerly), so each tick counted is a replay
+                sharded(*shards)
                 got, totals, k1_nccl = _fleet_run(sharded, *shards, "fleet over NCCL",
                                                   FLEET_K1_PER_TICK[False])
                 _same_carry(got, refs[0.0][0], "fleet over a one-rank NCCL group")
@@ -4823,6 +4904,491 @@ def _finish_fleet_cli(started, what):
           f"run_fleet processes and this one's checks; {time.perf_counter() - t0:.1f} s from its "
           f"start to its collection): {json.dumps(res)}")
     return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the entry points' CUDA graphs (`utils.graphs.Graphed`, at the
+# call sites where the JAX package jits) against the eager calls
+# ---------------------------------------------------------------------------
+
+GRAPH_TIMED = 10   # timed calls a side, in turns: eager, graphed, graphed, eager
+GRAPH_TICKS = 20   # chained ticks of a closed loop held graphed against eager
+GRAPH_SHORT = 10   # the same for the slower or smaller loops
+CONTROLLER_B = (1, 256, 4096, 16384)
+ASSOC_SHAPES = (("controller N=10", 10, 2, 5, 8), ("controller N=20", 20, 2, 5, 8),
+                ("hardware tick's solve N=6", 6, 1, 3, 12))
+
+
+def _tensors(tree):
+    from quaternion_mpc_tpu_torch.utils import graphs
+
+    return graphs.tensors(tree)
+
+
+def _elements_differ(got, want, what):
+    """(elements that differ, elements in all) over every tensor of two
+    outputs of one structure; NaN equals NaN (a runaway start's)."""
+    g, w = _tensors(got), _tensors(want)
+    _check(len(g) == len(w) and all(a.shape == b.shape and a.dtype == b.dtype
+                                    for a, b in zip(g, w)),
+           f"{what}: the graphed and eager outputs differ in structure")
+    differ = 0
+    for a, b in zip(g, w):
+        ne = a != b
+        if a.is_floating_point():
+            ne &= ~(torch.isnan(a) & torch.isnan(b))
+        differ += int(ne.sum())
+    return differ, sum(b.numel() for b in w)
+
+
+def _graph_turns(eager, graphed, calls=GRAPH_TIMED):
+    """Seconds of each call of ``eager()`` and ``graphed()``, each ending in
+    a synchronise, in turns (eager, graphed, graphed, eager) after one warm
+    call of each."""
+    eager()
+    graphed()
+    torch.cuda.synchronize()
+    times = {eager: [], graphed: []}
+    for fn in (eager, graphed, graphed, eager):
+        for _ in range(calls // 2):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[fn].append(time.perf_counter() - t0)
+    return times[eager], times[graphed]
+
+
+def _counts():
+    from quaternion_mpc_tpu_torch.utils import graphs
+
+    return {c.__name__: c.launches for c in graphs.launch_counters()}
+
+
+def _zero_counts():
+    from quaternion_mpc_tpu_torch.utils import graphs
+
+    for c in graphs.launch_counters():
+        c.launches = 0
+
+
+def _per_replay(n_iter, k1="riccati_sweep", k7=0):
+    """A replay's kernel launches: al x ilqr of K1 (or K4's fused entry),
+    K2 and K8; ``k7`` of K7."""
+    want = {k1: n_iter, "line_search": n_iter, "knot_expansions": n_iter}
+    return {**want, "articulated_step": k7} if k7 else want
+
+
+def _hold_graph(cap, what, want):
+    _check(cap.per_replay == want, f"{what}: launches a replay {cap.per_replay}, expected {want}")
+
+
+class _GraphRecord:
+    """What phase 16 prints and returns of every graph: its path, the
+    elements that differ from eager (of all), launches a replay, capture
+    seconds, pool bytes, and for the timed paths p50 / min / max of both
+    sides and a traced replay's and eager call's device ops and busy ms."""
+
+    def __init__(self):
+        self.paths = {}
+        self.k1 = {}
+        self.k7 = {}
+        self.cli = {}
+
+    def add(self, path, cap, differ, **more):
+        _check(differ[0] == 0, f"graphed {path}: {differ[0]} of {differ[1]} elements differ "
+                               f"from the eager run")
+        self.paths[path] = dict(elements_differ=list(differ), per_replay=cap.per_replay,
+                                capture_s=cap.capture_s, pool_bytes=cap.pool_bytes, **more)
+        print(f"[graphs] {path}: 0 of {differ[1]:,} elements differ from eager; launches a "
+              f"replay {cap.per_replay}; warm-up and capture {cap.capture_s:.2f} s, pool "
+              f"{cap.pool_bytes / 2**20:.1f} MiB")
+
+    def count(self, path, k2_instantiation="quat_srb_midpoint"):
+        """The kernels' launches of the replays just run (counted from 0),
+        into the kernels line under ``path``."""
+        c = _counts()
+        self.k1[path] = c["riccati_sweep"]
+        if c["articulated_step"]:
+            self.k7[path] = c["articulated_step"]
+        if c["line_search"]:
+            _k2_count(path, c["line_search"], k2_instantiation, k8=c["knot_expansions"])
+
+    def timed(self, path, eager, graphed, traced_k, calls=GRAPH_TIMED):
+        """p50 / min / max of eager and graphed calls in turns, and a traced
+        call of each: device ops and busy ms (``traced_k``: the K1, K7, K2
+        and K8 kernels a call launches)."""
+        e, g = _graph_turns(eager, graphed, calls)
+        rec = dict(eager_ms=_ms3(e), graphed_ms=_ms3(g))
+        for side, fn, p50 in (("eager", eager, rec["eager_ms"][0]),
+                              ("graphed", graphed, rec["graphed_ms"][0])):
+            try:
+                t = _profile_kernels(fn, f"{path} {side}", *traced_k)
+                rec[f"{side}_trace"] = dict(device_ops=t["device_ops"],
+                                            device_busy_ms=t["device_busy_ms"],
+                                            busy_share_of_p50=t["device_busy_ms"] / p50)
+            except RuntimeError as err:  # a record, not a check: the tracer may be unavailable
+                rec[f"{side}_trace"] = f"not measured: {err}"
+        self.paths[path].update(rec)
+        tr = {s: rec[f"{s}_trace"] for s in ("eager", "graphed")}
+        ops = "; ".join(f"{s} {t['device_ops']} device ops, busy {t['device_busy_ms']:.2f} ms "
+                        f"({100 * t['busy_share_of_p50']:.1f}% of the p50)"
+                        if isinstance(t, dict) else f"{s} trace {t}" for s, t in tr.items())
+        print(f"[graphs] {path}: p50 / min / max eager {rec['eager_ms'][0]:.2f} / "
+              f"{rec['eager_ms'][1]:.2f} / {rec['eager_ms'][2]:.2f} ms, graphed "
+              f"{rec['graphed_ms'][0]:.3f} / {rec['graphed_ms'][1]:.3f} / "
+              f"{rec['graphed_ms'][2]:.3f} ms ({len(e)} of each, in turns); {ops}")
+
+
+def _graph_chain(step, carry, args, ticks):
+    """``ticks`` chained calls of ``step(carry, *args)``; every tick's
+    outputs."""
+    outs = []
+    for _ in range(ticks):
+        carry, *out = step(carry, *args)
+        outs.append((carry, *out))
+    return outs
+
+
+def _hold_chain(rec, path, fn, carry, args, ticks, want_per_replay, generators=(),
+                reseed=None, k2_instantiation="quat_srb_midpoint"):
+    """``ticks`` chained ticks of ``fn`` as `Graphed(chain=True)` against as
+    many eager ticks from the same carry, every tick's state and outputs
+    compared (the eager ones cloned as they come: the graph's state is its
+    own buffer). ``reseed()``, where given, puts the generators back before
+    each side. Returns the graph."""
+    from quaternion_mpc_tpu_torch.utils.graphs import Graphed
+
+    g = Graphed(fn, chain=True, generators=generators)
+    cap = g.captured(carry, *args)
+    _hold_graph(cap, path, want_per_replay)
+    if reseed:
+        reseed()
+    eager = [tuple(_clone_tree(o) for o in out) for out in _graph_chain(fn, carry, args, ticks)]
+    if reseed:
+        reseed()
+    _zero_counts()
+    graphed = []
+    c = carry
+    for _ in range(ticks):
+        c, *out = g(c, *args)
+        graphed.append((_clone_tree(c), *out))
+    torch.cuda.synchronize()
+    rec.count(path, k2_instantiation)
+    rec.add(path, cap, _elements_differ(graphed, eager, path), ticks=ticks)
+    return g
+
+
+def _clone_tree(tree):
+    from quaternion_mpc_tpu_torch.utils.graphs import clone_tree
+
+    return clone_tree(tree)
+
+
+def _hold_call(rec, path, fn, inputs, want_per_replay, k2_instantiation="quat_srb_midpoint"):
+    """``fn`` as `Graphed` against the eager call on each of ``inputs`` (a
+    list of argument tuples: the capture's, then others the replay copies
+    in). Returns the graph."""
+    from quaternion_mpc_tpu_torch.utils.graphs import Graphed
+
+    g = Graphed(fn)
+    cap = g.captured(*inputs[0])
+    _hold_graph(cap, path, want_per_replay)
+    eager = [fn(*args) for args in inputs]
+    _zero_counts()
+    graphed = [g(*args) for args in inputs]
+    torch.cuda.synchronize()
+    rec.count(path, k2_instantiation)
+    rec.add(path, cap, _elements_differ(graphed, eager, path), calls=len(inputs))
+    return g
+
+
+def _time_solve_scenario(rec, device, rounds=3):
+    """`scenarios.solve_scenario("falling_cat")` in f32, one call timed each
+    way, in turns: as the parent tree ran it (eager: `Graphed` taken out of
+    the module for the call), its first call (the GRAPH_WARMUP warm-ups, the
+    capture and one replay) and a later call with the same arguments (a
+    replay of the graph it keeps). Leaves no graph kept."""
+    from quaternion_mpc_tpu_torch import scenarios
+
+    def call():
+        scenarios.solve_scenario("falling_cat", dtype=torch.float32, device=device)
+        torch.cuda.synchronize()
+
+    def eager():
+        kept = scenarios.Graphed
+        scenarios.Graphed = lambda fn, **_: fn
+        scenarios._SOLVES.clear()
+        try:
+            call()
+        finally:
+            scenarios.Graphed = kept
+            scenarios._SOLVES.clear()
+
+    def first():
+        scenarios._SOLVES.clear()
+        call()
+
+    times = {eager: [], first: [], call: []}
+    eager()  # builds whatever this shape has not built yet
+    try:
+        for order in ((eager, first, call), (call, first, eager)) * rounds:
+            for fn in order:
+                t0 = time.perf_counter()
+                fn()
+                times[fn].append(time.perf_counter() - t0)
+    finally:
+        scenarios._SOLVES.clear()
+    got = {k: _ms3(times[f]) for k, f in (("eager_parent_ms", eager), ("first_call_ms", first),
+                                          ("later_call_ms", call))}
+    rec.paths["solve_scenario falling_cat, one call"] = got
+    print("[graphs] solve_scenario falling_cat f32, one call, p50 / min / max: "
+          + "; ".join(f"{k[:-3].replace('_', ' ')} {v[0]:.1f} / {v[1]:.1f} / {v[2]:.1f} ms"
+                      for k, v in got.items())
+          + f" ({2 * rounds} of each, in turns)")
+
+
+# the CLI's commands run here, each with the kernels' counts set to 0 just
+# before: (argv, K1 or K4 launches a call of the graphed function, calls of
+# it the command makes: the capture's GRAPH_WARMUP warm-ups are added)
+GRAPH_CLI_STEPS = 20
+GRAPH_CLI = (
+    (["bench_solver", "--batch", "4096", "--iters", "10"], 10, 1 + 10),
+    (["run_standing", "--batch", "4096", "--steps", str(GRAPH_CLI_STEPS), "--push", "20",
+      "--push-at", "5", "--push-ticks", "5"], 10, 2 * GRAPH_CLI_STEPS),
+    (["run_trot", "--batch", "4096", "--steps", str(GRAPH_CLI_STEPS)], 8, 2 * GRAPH_CLI_STEPS),
+    (["run_actuated", "--batch", "64", "--steps", str(GRAPH_CLI_STEPS)], 8, 2 * GRAPH_CLI_STEPS),
+    (["run_actuated", "--batch", "64", "--steps", str(GRAPH_CLI_STEPS), "--kf_type", "1"], 8,
+     2 * GRAPH_CLI_STEPS),
+    (["run_scenario", "--name", "falling_cat"], 75, 1),
+    (["run_scenario", "--name", "falling_cat", "--closed_loop", "--steps", "10"], 16, 10),
+)
+
+
+def _graph_cli(rec):
+    """The CLI's commands in this process (`cli.main`), each counted from 0:
+    its launches are those of its graphed calls plus the capture's
+    GRAPH_WARMUP eager warm-ups, which an eager command would not run: the
+    command went through its graph. Prints each command's JSON."""
+    import contextlib
+    import io
+
+    from quaternion_mpc_tpu_torch import cli
+    from quaternion_mpc_tpu_torch.utils.graphs import GRAPH_WARMUP
+
+    for argv, per_call, calls in GRAPH_CLI:
+        _zero_counts()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            _check(cli.main(argv) == 0, f"cli {' '.join(argv)}: non-zero exit")
+        torch.cuda.synchronize()
+        c = _counts()
+        k1 = c["riccati_sweep"] + c["assoc_backward"]
+        want = per_call * (calls + GRAPH_WARMUP)
+        _check(k1 == want and c["line_search"] == c["knot_expansions"] == want,
+               f"cli {' '.join(argv)}: launches {c}, expected {want} of K1, K2 and K8 "
+               f"({calls} graphed calls of {per_call} and {GRAPH_WARMUP} warm-ups)")
+        res = json.loads(out.getvalue().strip().splitlines()[-1])
+        rec.cli[" ".join(argv)] = res
+        print(f"[graphs] cli {' '.join(argv)} in this process: K1, K2 and K8 {want} each "
+              f"({calls} x {per_call} replayed, {GRAPH_WARMUP} x {per_call} in the capture's "
+              f"warm-ups); {json.dumps(res)}")
+
+
+def _no_sync_call(fn, what):
+    """fn() with every synchronising CUDA call an error (a capture would
+    fail on one)."""
+    fn()
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    print(f"[graphs] {what} under set_sync_debug_mode('error'): no synchronising call")
+
+
+def phase_graphs(device, smi):
+    """Phase 16: every entry point that the JAX package jits, as the port
+    replays it on the card (`utils.graphs.Graphed`), held against the eager
+    call of the same library function on the same inputs: every output's
+    elements compared (0 may differ), each graph's kernel launches a replay
+    (al x ilqr of K1 or K4's fused entry, K2 and K8; K7 once an actuated
+    tick), its warm-up and capture seconds and its pool's bytes:
+
+    a. `cli bench_solver`'s controller (`make_fleet_controller`, 2 x 5, 8
+       alphas) at B in CONTROLLER_B in f32 and at B=256 in f64, a second
+       set of inputs replayed as well; the convex controller (1 x 5) at
+       B=4096;
+    b. `cli _run_loop`'s tick, chained: the CLI's standing fleet at B=4096
+       with a push window (the wrench an input of every tick), the walking
+       RTI fleet at B=4096, the actuated fleet and its estimated step
+       (BasicKF) at B=64; the estimated fleet with its noise from a CUDA
+       generator registered with the graph, ten replays against ten eager
+       ticks from the same generator state;
+    c. `cli viz_forces`'s actuated step, one robot;
+    d. `parallel.distributed.scaling_report_fleet` at one rank (`cli
+       run_fleet`'s graphed step is held in phase 15, its processes' carries
+       against the eager unsharded step);
+    e. `scenarios.solve_scenario`'s solve (falling_cat at its own size),
+       the falling_cat fleet (B=4096, N=40, 3 x 25) and
+       `scenarios.run_closed_loop`'s receding tick, chained; one
+       `solve_scenario` call timed eager (as the parent tree ran it), as its
+       first call and as a later one (`_time_solve_scenario`).
+
+    The controller's step and `make_solver`'s solve run once under
+    `set_sync_debug_mode("error")` first. The CLI's commands (`GRAPH_CLI`)
+    run in this process, each launching exactly its graphed calls' kernels
+    and the capture's warm-ups'. Timed, eager and graphed in turns
+    (p50 / min / max, a traced call of each: device ops, busy ms and its
+    share of the p50): the fleet step at B=4096, the walking RTI tick, the
+    convex step and the falling_cat 3 x 25 solve; then "assoc" against
+    "sweep" replays at B=1 (ASSOC_SHAPES), in turns. Returns a dict for the
+    kernels line."""
+    from quaternion_mpc_tpu_torch import examples, scenarios
+    from quaternion_mpc_tpu_torch.control import convex_mpc, quat_mpc
+    from quaternion_mpc_tpu_torch.parallel import distributed
+    from quaternion_mpc_tpu_torch.runtime import step as rt
+    from quaternion_mpc_tpu_torch.sim.plant import ExtWrench
+    from quaternion_mpc_tpu_torch.solver import al_ilqr
+    from quaternion_mpc_tpu_torch.solver.problem import SolverOptions
+    from quaternion_mpc_tpu_torch.utils.graphs import Graphed
+    from quaternion_mpc_tpu_torch.utils.tree import tile
+
+    t0 = time.perf_counter()
+    rec = _GraphRecord()
+    f32, f64 = torch.float32, torch.float64
+
+    # a. the controller
+    opts = SolverOptions(al_iterations=2, ilqr_iterations=5, max_linesearch=8)
+    ctrl = quat_mpc.make_fleet_controller(HORIZON, opts)
+    sync_in = examples.standing_batch(CONTROLLER_B[1], HORIZON, f32, device)
+    _no_sync_call(lambda: ctrl(*sync_in), f"the fleet controller's step, B={CONTROLLER_B[1]}")
+    fleet_graph = None
+    for dtype, b in [(f32, b) for b in CONTROLLER_B] + [(f64, CONTROLLER_B[1])]:
+        inputs = [examples.standing_batch(b, HORIZON, dtype, device, seed=s) for s in (0, 1)]
+        g = _hold_call(rec, f"controller 2x5 {str(dtype)[6:]} B={b}", ctrl, inputs,
+                       _per_replay(10, "assoc_backward" if b == 1 else "riccati_sweep"))
+        if dtype == f32 and b == CLOSED_LOOP_B:
+            fleet_graph, fleet_inputs = g, inputs[0]
+    rec.timed(f"controller 2x5 float32 B={CLOSED_LOOP_B}", lambda: ctrl(*fleet_inputs),
+              lambda: fleet_graph(*fleet_inputs), (10, 0, 10, 10))
+    copts = SolverOptions(al_iterations=1, ilqr_iterations=5, max_linesearch=8)
+    cctrl = convex_mpc.make_fleet_controller(HORIZON, copts)
+    cin = examples.standing_batch(CLOSED_LOOP_B, HORIZON, f32, device, controller="convex")
+    convex = f"convex controller 1x5 float32 B={CLOSED_LOOP_B}"
+    cg = _hold_call(rec, convex, cctrl, [cin], _per_replay(5),
+                    k2_instantiation="euler_srb_midpoint")
+    fz = cg(*cin)[0][..., 2].sum(-1).mean().item()
+    rec.paths[convex]["mean_sum_fz_N"] = fz
+    rec.timed(convex, lambda: cctrl(*cin), lambda: cg(*cin), (5, 0, 5, 5))
+
+    # b, c. the closed loops' ticks
+    sopts = SolverOptions(al_iterations=2, ilqr_iterations=5)
+    stand = rt.make_fleet_standing_step(HORIZON, sopts)
+    carry, sp, joy = examples.standing_fleet(CLOSED_LOOP_B, f32, device)
+    f = torch.tensor([0.0, 20.0, 0.0], dtype=f32, device=device)
+    push = tile(ExtWrench(f, torch.linalg.cross(
+        torch.tensor([0.0, 0.0, 0.1], dtype=f32, device=device), f)), CLOSED_LOOP_B)
+    _hold_chain(rec, f"standing fleet 2x5 B={CLOSED_LOOP_B}, pushed 20 N", stand,
+                carry, (sp, joy, push), GRAPH_SHORT, _per_replay(10))
+    walk = rt.make_fleet_walking_step(HORIZON, _rti_opts(), warm_start=True)
+    carry, sp, joy = examples.walking_batch(CLOSED_LOOP_B, HORIZON, f32, device, velx=0.3)
+    wg = _hold_chain(rec, f"walking RTI fleet 1x3 B={CLOSED_LOOP_B}", walk,
+                     carry, (sp, joy), GRAPH_TICKS, _per_replay(3))
+    state = {"eager": carry, "graphed": carry}
+
+    def tick(side, fn):
+        def run():
+            state[side], _ = fn(state[side], sp, joy)
+        return run
+
+    rec.timed(f"walking RTI fleet 1x3 B={CLOSED_LOOP_B}", tick("eager", walk),
+              tick("graphed", wg), (3, 0, 3, 3))
+    act = rt.make_actuated_walking_step(HORIZON, _act_opts(), n_sub=ACT_N_SUB)
+    carry, sp, joy = examples.actuated_batch(ACT_B, f32, device)
+    _hold_chain(rec, f"actuated fleet 2x4 B={ACT_B}", act, carry, (sp, joy), GRAPH_SHORT,
+                _per_replay(8, k7=1))
+    est_act = rt.make_estimated_actuated_step(HORIZON, _act_opts(), kf_type=1, n_sub=ACT_N_SUB)
+    carry, sp, joy = examples.actuated_batch(ACT_B, f32, device, kf_type=1)
+    _hold_chain(rec, f"estimated actuated fleet (BasicKF) 2x4 B={ACT_B}", est_act,
+                carry, (sp, joy), GRAPH_SHORT, _per_replay(8, k7=1))
+    one = rt.make_actuated_walking_step(HORIZON)
+    carry, sp = rt.init_actuated_scenario(
+        quat_mpc.weights_from_config(_go1_cfg(), dtype=f32, device=device), dtype=f32,
+        device=device)
+    joy = rt.neutral_joy(f32, device)._replace(velx=torch.full((), 0.4, dtype=f32, device=device))
+    _hold_chain(rec, "viz_forces actuated step, one robot", one, carry, (sp, joy), 5,
+                _per_replay(8, k7=1))
+    gen = torch.Generator(device=device).manual_seed(3)
+    est = rt.make_fleet_estimated_step(HORIZON, _est_opts(), generator=gen, **EST_BENCH_STDS)
+    carry, sp, joy = examples.estimated_batch(CLOSED_LOOP_B, HORIZON, f32, device)
+    seeded = gen.get_state()
+    _hold_chain(rec, f"estimated fleet 2x4 B={CLOSED_LOOP_B}, noise from a registered generator",
+                est, carry, (sp, joy), GRAPH_SHORT, _per_replay(8),
+                generators=(gen,), reseed=lambda: gen.set_state(seeded))
+
+    # d. the fleet over ranks (one here)
+    report = distributed.scaling_report_fleet(
+        rt.make_fleet_standing_step(HORIZON, sopts),
+        lambda b: examples.standing_fleet(b, f32, device), (1,), CLOSED_LOOP_B, iters=5,
+        device=device)
+    print(f"[graphs] scaling_report_fleet at one rank, B={CLOSED_LOOP_B}, the rank's step "
+          f"graphed: {report[1]['step_s'] * 1e3:.2f} ms a step")
+    rec.paths["scaling_report_fleet one rank"] = {"step_ms": report[1]["step_s"] * 1e3}
+
+    # e. the single-problem path
+    spec, prob, sc_opts = scenarios.SCENARIOS["falling_cat"](dtype=f32, device=device)
+    solver = al_ilqr.make_solver(spec, sc_opts)
+    _no_sync_call(lambda: solver(prob), "make_solver's falling_cat solve")
+    n_sc = sc_opts.al_iterations * sc_opts.ilqr_iterations
+    _hold_call(rec, "solve_scenario falling_cat", solver, [(prob,)], _per_replay(n_sc),
+               k2_instantiation="attitude_midpoint")
+    spec, prob, cat_opts = examples.falling_cat_fleet(CAT_FLEET_B, f32, device, seed=0)
+    cat = al_ilqr.make_solver(spec, cat_opts)
+    n_cat = cat_opts.al_iterations * cat_opts.ilqr_iterations
+    catg = _hold_call(rec, f"falling_cat fleet 3x25 B={CAT_FLEET_B}", cat, [(prob,)],
+                      _per_replay(n_cat), k2_instantiation="attitude_midpoint")
+    rec.timed(f"falling_cat fleet 3x25 B={CAT_FLEET_B}", lambda: cat(prob), lambda: catg(prob),
+              (n_cat, 0, n_cat, n_cat), calls=6)
+    step, carry = scenarios.make_receding_step("falling_cat", dtype=f32, device=device)
+    _hold_chain(rec, "run_closed_loop falling_cat receding tick", step, carry, (),
+                GRAPH_SHORT, _per_replay(16), k2_instantiation="attitude_midpoint")
+
+    _time_solve_scenario(rec, device)
+
+    _graph_cli(rec)
+
+    # "assoc" against "sweep" at B=1, replayed
+    assoc = {}
+    for label, n, al, ilqr, alphas in ASSOC_SHAPES:
+        o = SolverOptions(al_iterations=al, ilqr_iterations=ilqr, max_linesearch=alphas)
+        inputs = examples.standing_batch(1, n, f32, device)
+        sides = {}
+        for backend in ("assoc", "sweep"):
+            c = quat_mpc.make_fleet_controller(n, o, backend=backend)
+            g = Graphed(c)
+            cap = g.captured(*inputs)
+            _hold_graph(cap, f"{label} {backend}", _per_replay(
+                al * ilqr, "assoc_backward" if backend == "assoc" else "riccati_sweep"))
+            _check(_elements_differ(g(*inputs), c(*inputs), label)[0] == 0,
+                   f"{label} {backend}: graphed differs from eager")
+            sides[backend] = lambda g=g: g(*inputs)
+        a, s = _graph_turns(sides["assoc"], sides["sweep"], calls=20)
+        assoc[label] = {"assoc_ms": _ms3(a), "sweep_ms": _ms3(s)}
+        print(f"[graphs] B=1 {label}, {al}x{ilqr}, {alphas} alphas, replayed: assoc p50 / min / "
+              f"max {_ms3(a)[0]:.3f} / {_ms3(a)[1]:.3f} / {_ms3(a)[2]:.3f} ms, sweep "
+              f"{_ms3(s)[0]:.3f} / {_ms3(s)[1]:.3f} / {_ms3(s)[2]:.3f} ms (20 each, in turns)")
+    print(f"[graphs] phase wall {time.perf_counter() - t0:.1f} s; {smi}")
+    return dict(paths=rec.paths, assoc_vs_sweep_B1=assoc, k1_launches=rec.k1,
+                k7_launches=rec.k7, cli=rec.cli)
+
+
+def _go1_cfg():
+    from quaternion_mpc_tpu_torch.utils import config as cfg
+
+    return cfg.gazebo_go1_quat_mpc()
 
 
 def phase_k7_kernels_only(device, baseline):
@@ -4921,6 +5487,7 @@ def _print_ptxas(kbuild, rs, k4, libs):
 def main(argv) -> int:
     t_start = time.perf_counter()
     hardware_only = argv == ["--hardware-only"]
+    graphs_only = argv == ["--graphs-only"]
     baselines = dict(zip(argv[1::2], argv[2::2]))
     kernels_only = (argv[:1] == ["--kernels-only"] and len(argv) % 2 == 1
                     and set(baselines) <= {"--k7-baseline", "--k2-baseline", "--k8-baseline",
@@ -4930,11 +5497,11 @@ def main(argv) -> int:
                "hardware-peer-profile": _worker_hw_peer_profile,
                **{name: _worker_hw_walk(name) for name in HW_FRESH_WALKS}}
     worker = argv[1] if len(argv) == 2 and argv[0] == "--worker" and argv[1] in workers else None
-    if argv and not (kernels_only or worker or hardware_only):
+    if argv and not (kernels_only or worker or hardware_only or graphs_only):
         print("usage: chip_smoke.py [--kernels-only [--k1-baseline SOURCE] [--k7-baseline SOURCE] "
               "[--k2-baseline SOURCE] "
               "[--k8-baseline SOURCE[,SOURCE...]] "
-              "| --hardware-only | "
+              "| --hardware-only | --graphs-only | "
               "--worker "
               f"{{{','.join(workers)}}}]", file=sys.stderr)
         return 2
@@ -4985,6 +5552,10 @@ def main(argv) -> int:
         phase_fleet(device, smi)
         print(f"[done] hardware and fleet only, no result line; wall "
               f"{time.perf_counter() - t_start:.1f} s")
+        return 0
+    if graphs_only:
+        phase_graphs(device, smi)
+        print(f"[done] graphs only, no result line; wall {time.perf_counter() - t_start:.1f} s")
         return 0
     worst_f32 = phase_kernel_vs_plain(device)                  # 3
     worst_f32_scan, worst_f32_fused = phase_scan_vs_plain(device)
@@ -5049,6 +5620,7 @@ def main(argv) -> int:
     act = phase_actuated(device, smi)                          # 13
     hw = phase_hardware(device, smi)                           # 14
     fleet = phase_fleet(device, smi)                           # 15
+    graphs = phase_graphs(device, smi)                         # 16
     sweep_times.update(k1_shape_times)
     per_tick = {"standing_2x5_B4096": stand_per, "walking_rti_1x3_B4096": walk_per,
                 "walking_rti_1x3_B1": one_per, "estimated_2x5_B4096": est["per_tick"],
@@ -5069,7 +5641,8 @@ def main(argv) -> int:
         "launches": (launches + est["k1_launches"] + solve_launches + tick_launches
                      + bicycle_launches + cat["k1_launches"] + sum(act["k1_launches"].values())
                      + act["single_k1"] + sum(hw["k1_launches"].values())
-                     + sum(fleet["k1_launches"].values())),
+                     + sum(fleet["k1_launches"].values())
+                     + sum(graphs["k1_launches"].values())),
         "launches_by_path": {"fleet_solves_B256_4096_16384": launches,
                              "estimated_tick_B4096": est["k1_launches"],
                              "make_solver_default_6x10_quat_fixture": solve_launches,
@@ -5078,7 +5651,8 @@ def main(argv) -> int:
                              "bicycle_receding_solves_2x8_with_lux": bicycle_launches,
                              **act["k1_launches"],
                              "per_scenario_srb_steps_B1": act["single_k1"],
-                             **hw["k1_launches"], **fleet["k1_launches"]},
+                             **hw["k1_launches"], **fleet["k1_launches"],
+                             **{f"graphed {k}": v for k, v in graphs["k1_launches"].items()}},
         "max_abs_err": worst_f32,
         # over phase 12's shapes below 12 x 12, whose outputs reach 8e4 (dV1 of
         # the double integrator): each is held relative to its own scale
@@ -5126,6 +5700,10 @@ def main(argv) -> int:
         "cli_run_fleet_B4096": fleet["cli"],
         "cli_bench_solver_p50_step_ms_B4096": hw["cli_p50_step_ms_B4096"],
         "cli_run_hardware": hw["cli_run_hardware"],
+        # phase 16: each entry point's CUDA graph against its eager run
+        "entry_point_graphs": graphs["paths"],
+        "assoc_vs_sweep_B1_replayed_ms": graphs["assoc_vs_sweep_B1"],
+        "cli_graphed_in_process": graphs["cli"],
     }, {
         "name": "assoc_scan",
         "route": "cuda",
@@ -5172,8 +5750,10 @@ def main(argv) -> int:
                    "lane; the parameters staged in shared memory once a launch"),
         # the actuated ticks of phase 13, each run driven with the count set
         # to 0 just before and read just after (exactly one a tick)
-        "launches": sum(act["k7_launches"].values()) + sum(hw["k7_launches"].values()),
-        "launches_by_path": {**act["k7_launches"], **hw["k7_launches"]},
+        "launches": (sum(act["k7_launches"].values()) + sum(hw["k7_launches"].values())
+                     + sum(graphs["k7_launches"].values())),
+        "launches_by_path": {**act["k7_launches"], **hw["k7_launches"],
+                             **{f"graphed {k}": v for k, v in graphs["k7_launches"].items()}},
         # f32 against the plain step in f64, outside the scenarios whose f32
         # plain step flips a stick / slip decision (act["flips"] of 4096)
         "max_abs_err": act["worst_f32"],

@@ -13,7 +13,16 @@ names another:
 Each command prints a one-line JSON summary on stdout with the JAX CLI's
 keys and optionally streams LeggedLogger-style telemetry with --log. A
 closed-loop run is timed on its second pass; ``compile_s`` is what the first
-pass took beyond it (building the CUDA kernels at first use, and warm-up).
+pass took beyond it (building the CUDA kernels at first use, the warm-up and
+the capture of the tick's graph: XLA's compile time in the JAX CLI).
+
+Where the JAX CLI jits (the controller of ``bench_solver``, the tick of the
+closed loops, ``run_fleet`` and ``viz_forces``, the branch scenarios'
+solves and receding ticks), the port replays a CUDA graph on the card
+(`utils.graphs.Graphed`); on the CPU the same functions run eagerly. To
+time eager calls on the card, call the library functions the commands
+wrap (`control.quat_mpc.make_fleet_controller`, the `runtime.step`
+factories, `solver.al_ilqr.make_solver`) directly.
 """
 
 from __future__ import annotations
@@ -85,12 +94,18 @@ def _sync(device) -> None:
 def _run_loop(args, step, init_carry, joy, sp, metric_names, device):
     """Shared closed-loop runner: ``args.steps`` ticks of the fleet step (a
     Python loop where the JAX CLI scans), run twice from ``init_carry``: the
-    first pass builds and warms, the second is timed. Reports the last
-    tick's metrics."""
+    first pass builds, warms and captures, the second is timed. Reports the
+    last tick's metrics.
+
+    On the card one tick is a CUDA graph, replayed ``args.steps`` times with
+    the carry chained in the graph's own buffers, as the hardware loop does.
+    The ticks are not captured in one graph, as the JAX CLI's scan compiles
+    them: its memory and capture time would grow with ``--steps``."""
     import numpy as np
     import torch
 
     from quaternion_mpc_tpu_torch.utils import telemetry
+    from quaternion_mpc_tpu_torch.utils.graphs import Graphed
     from quaternion_mpc_tpu_torch.utils.tree import tile, tree_map
 
     push = float(getattr(args, "push", 0.0) or 0.0)
@@ -107,15 +122,17 @@ def _run_loop(args, step, init_carry, joy, sp, metric_names, device):
         ext_on = tile(plant_mod.ExtWrench(f, tq), args.batch)
         ext_off = tree_map(torch.zeros_like, ext_on)
     t_on, n_on = args.push_at, args.push_ticks
+    # with --push the wrench is an input of every tick, the push window's
+    # or zeros (the JAX body's jnp.where); the metrics are read after the
+    # last tick only, so a replay's are not cloned out of the graph
+    fn = step if ext_on is None else (lambda c, s, j, ext: step(c, s, j, ext_wrench=ext))
+    tick = Graphed(fn, chain=True, clone_outs=False)
 
     def run(carry):
         metrics = None
         for t in range(args.steps):
-            if ext_on is None:
-                carry, metrics = step(carry, sp, joy)
-            else:
-                ext = ext_on if t_on <= t < t_on + n_on else ext_off
-                carry, metrics = step(carry, sp, joy, ext_wrench=ext)
+            ext = () if ext_on is None else (ext_on if t_on <= t < t_on + n_on else ext_off,)
+            carry, metrics = tick(carry, sp, joy, *ext)
         _sync(device)
         return carry, metrics
 
@@ -292,7 +309,10 @@ def cmd_run_fleet(args) -> dict:
         print(f"[fleet] resumed from {args.resume} @ step {start_step}", file=sys.stderr)
 
     # the fleet step on this rank's shard, metrics summed over the ranks;
-    # --walk shards the walking fleet (gait and warm-start state in the carry)
+    # --walk shards the walking fleet (gait and warm-start state in the carry).
+    # On the card the rank's part (the step and its sums over the shard) is a
+    # CUDA graph (`mesh.fleet_shard`), replayed with the carry chained in its
+    # buffers; the all_reduce over the ranks runs outside it
     if walking:
         step_fn = rt.make_fleet_walking_step(horizon=args.horizon, controller=args._controller)
     else:
@@ -307,7 +327,7 @@ def cmd_run_fleet(args) -> dict:
         _sync(device)
         return c, metrics
 
-    run(carry0)  # builds the kernels
+    run(carry0)  # builds the kernels and captures the graph
     t0 = time.perf_counter()
     carry, metrics = run(carry0)
     wall = time.perf_counter() - t0
@@ -339,16 +359,19 @@ def cmd_bench_solver(args) -> dict:
     from quaternion_mpc_tpu_torch.control import convex_mpc, quat_mpc
     from quaternion_mpc_tpu_torch.examples import standing_batch
     from quaternion_mpc_tpu_torch.solver.problem import SolverOptions
+    from quaternion_mpc_tpu_torch.utils.graphs import Graphed
 
     if args._controller == "convex":
-        step = convex_mpc.make_fleet_controller(
+        ctrl = convex_mpc.make_fleet_controller(
             args.horizon, SolverOptions(al_iterations=1, ilqr_iterations=5))
     else:
-        step = quat_mpc.make_fleet_controller(
+        ctrl = quat_mpc.make_fleet_controller(
             args.horizon, SolverOptions(al_iterations=2, ilqr_iterations=5))
+    # the JAX CLI jits the controller: on the card a CUDA graph, replayed
+    step = Graphed(ctrl)
     fbk, cmd, wts_b = standing_batch(args.batch, args.horizon, dtype, device,
                                      controller=args._controller)
-    grf, cost = step(fbk, cmd, wts_b)  # builds K1, warms
+    grf, cost = step(fbk, cmd, wts_b)  # builds the kernels, warms, captures
     _sync(device)
     times = []
     for _ in range(args.iters):
@@ -400,6 +423,7 @@ def cmd_viz_forces(args) -> dict:
     from quaternion_mpc_tpu_torch.sim import articulated as art_mod
     from quaternion_mpc_tpu_torch.sim import terrain as terrain_mod
     from quaternion_mpc_tpu_torch.utils import telemetry, visualize
+    from quaternion_mpc_tpu_torch.utils.graphs import Graphed
 
     tp = None
     if args.terrain != "flat":
@@ -407,7 +431,10 @@ def cmd_viz_forces(args) -> dict:
     carry, sp = rt.init_actuated_scenario(wts, dtype=dtype, terrain=tp, device=device)
     joy = rt.neutral_joy(dtype, device)._replace(
         velx=torch.full((), args.velx, dtype=dtype, device=device))
-    step = rt.make_actuated_walking_step(horizon=args.horizon)
+    # the JAX CLI jits the step: on the card a CUDA graph, replayed with the
+    # carry chained in its buffers (each tick is read before the next replay)
+    step = Graphed(rt.make_actuated_walking_step(horizon=args.horizon), chain=True,
+                   clone_outs=False)
 
     logger = telemetry.TelemetryLogger(args.log)
     frames = []

@@ -139,6 +139,9 @@ def scaling_report(
 
     make_step() -> step(carry, inputs) on a leading batch axis;
     make_batch(B) -> (carry, inputs) batch-leading trees of the whole fleet.
+    On the card each rank's part of the step (the step and its sums over the
+    shard) is a CUDA graph (`mesh.fleet_map`), as the JAX package jits the
+    sharded step; the all_reduce runs outside it.
     """
     def run_on(m, B):
         fleet = mesh_mod.fleet_map(make_step(), m)
@@ -158,7 +161,8 @@ def scaling_report_fleet(
 ) -> dict:
     """Weak-scaling sweep of a fleet-native step (`runtime.step.make_fleet_*`)
     sharded with `mesh.fleet_shard`, the per-device batch held while the
-    mesh grows. make_batch(B) -> (carry, sp, joy) batch-leading trees."""
+    mesh grows. make_batch(B) -> (carry, sp, joy) batch-leading trees. On
+    the card each rank's part is a CUDA graph, as in `scaling_report`."""
     def run_on(m, B):
         sharded = mesh_mod.fleet_shard(fleet_step, m)
         carry, sp, joy = (mesh_mod.shard_batch(t, m) for t in make_batch(B))

@@ -22,6 +22,7 @@ import torch
 import torch.distributed as dist
 
 from quaternion_mpc_tpu_torch._bridge import resolve_device
+from quaternion_mpc_tpu_torch.utils.graphs import Graphed
 from quaternion_mpc_tpu_torch.utils.tree import is_namedtuple
 
 SCENARIO_AXIS = "scenario"
@@ -111,8 +112,29 @@ def _psum(total: torch.Tensor, mesh: ScenarioMesh) -> torch.Tensor:
     return total
 
 
-def _fleet_totals(metrics, mesh: ScenarioMesh):
-    return _map(lambda m: _psum(torch.sum(m, dim=0), mesh), metrics)
+def _over_ranks(step_fn: Callable, mesh: ScenarioMesh, reduce: bool):
+    """``step_fn`` on this rank's shard, its per-scenario metrics summed over
+    the shard and then over the ranks when ``reduce``. The rank's part (the
+    step and its sums over the shard) is replayed from a CUDA graph on the
+    card (`utils.graphs.Graphed`, as the JAX package jits the sharded step;
+    ``step_fn`` itself on the CPU); the collective runs outside it. The
+    carry it returns is the graph's own buffer, which the next call
+    overwrites."""
+    def local(carry, *args):
+        carry, metrics = step_fn(carry, *args)
+        if reduce:
+            metrics = _map(lambda m: torch.sum(m, dim=0), metrics)
+        return carry, metrics
+
+    part = Graphed(local, chain=True, label="a rank's part of the fleet step")
+    if not reduce:
+        return part
+
+    def fleet_fn(*args):
+        carry, sums = part(*args)
+        return carry, _map(lambda t: _psum(t, mesh), sums)
+
+    return fleet_fn
 
 
 def fleet_map(step_fn: Callable, mesh: ScenarioMesh, *, has_metrics: bool = True):
@@ -121,14 +143,9 @@ def fleet_map(step_fn: Callable, mesh: ScenarioMesh, *, has_metrics: bool = True
     step_fn: (carry, inputs) -> (carry, metrics) on a leading batch axis
     (the port's per-scenario steps take one; no vmap). Returns fleet_fn on
     this rank's shard; the metrics, summed over the shard and the ranks, are
-    fleet totals, the same on every rank."""
-    def fleet_fn(carry, inputs):
-        carry, metrics = step_fn(carry, inputs)
-        if has_metrics:
-            metrics = _fleet_totals(metrics, mesh)
-        return carry, metrics
-
-    return fleet_fn
+    fleet totals, the same on every rank. On the card the rank's part is a
+    CUDA graph (`_over_ranks`)."""
+    return _over_ranks(step_fn, mesh, has_metrics)
 
 
 def fleet_shard(fleet_step: Callable, mesh: ScenarioMesh, *, reduce_metrics: bool = True):
@@ -136,14 +153,9 @@ def fleet_shard(fleet_step: Callable, mesh: ScenarioMesh, *, reduce_metrics: boo
     ``runtime.step.make_fleet_*``) over the mesh: each rank runs it on its
     shard; the per-scenario metrics are summed to fleet totals (the same on
     every rank) unless ``reduce_metrics=False``, which keeps them per
-    scenario of the shard."""
-    def sharded(carry, sp, joy):
-        carry, metrics = fleet_step(carry, sp, joy)
-        if reduce_metrics:
-            metrics = _fleet_totals(metrics, mesh)
-        return carry, metrics
-
-    return sharded
+    scenario of the shard. On the card the rank's part is a CUDA graph
+    (`_over_ranks`)."""
+    return _over_ranks(fleet_step, mesh, reduce_metrics)
 
 
 def fleet_mean(values: torch.Tensor, mesh: ScenarioMesh) -> torch.Tensor:

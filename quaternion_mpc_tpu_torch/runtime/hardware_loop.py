@@ -23,7 +23,7 @@ low-level period on the card), so the loop runs the whole stack: solver →
 torque map → wire codec → UDP → firmware PD → contact physics → sensors →
 wire → estimator → solver.
 
-On the card the loop replays CUDA graphs (`CapturedStep`): the tick (or, in
+On the card the loop replays CUDA graphs (`utils.graphs.Graphed`): the tick (or, in
 three-tier mode, its estimator and MPC tiers) and the peer's period are each
 captured once, before any thread starts, and a tick costs the host a few
 copies, one replay and one pull instead of thousands of eager launches. On the CPU the
@@ -67,7 +67,9 @@ from quaternion_mpc_tpu_torch.sim import articulated as art_mod
 from quaternion_mpc_tpu_torch.sim import terrain as terrain_mod
 from quaternion_mpc_tpu_torch.solver.problem import SolverOptions
 from quaternion_mpc_tpu_torch.utils import config as cfg_mod
-from quaternion_mpc_tpu_torch.utils.tree import tree_leaves, tree_map
+from quaternion_mpc_tpu_torch.utils.graphs import (  # noqa: F401  (the first two re-exported)
+    GRAPH_WARMUP, CapturedStep, Graphed)
+from quaternion_mpc_tpu_torch.utils.tree import tree_map
 
 # default-pose / stand-up servo gains per joint type (hip, thigh, calf): the
 # reference's hard-coded stand gains (GazeboInterface.cpp:85-111)
@@ -176,117 +178,9 @@ def _where(cond, new, old):
     return tree_map(lambda a, b: torch.where(cond, a, b), new, old)
 
 
-# eager calls before a capture: they build the kernels, fill the per-device
-# constant caches and settle the allocator, none of which a capture may do
-GRAPH_WARMUP = 2
-
 # the interpreter's switch interval while `run_hardware_loopback`'s threads
 # run their periods (the servo's is 4 ms at 250 Hz)
 RT_SWITCH_INTERVAL_S = 5e-4
-
-
-def _launch_counters():
-    """The kernel wrappers, each with its ``launches`` count."""
-    from quaternion_mpc_tpu_torch.kernels import (articulated, assoc_scan, expansions,
-                                                  line_search, riccati_sweep)
-
-    return (riccati_sweep.riccati_sweep, assoc_scan.assoc_scan, assoc_scan.assoc_backward,
-            articulated.articulated_step, line_search.line_search, expansions.knot_expansions)
-
-
-def _clone_out(x):
-    if isinstance(x, dict):
-        return {k: _clone_out(v) for k, v in x.items()}
-    return tree_map(torch.clone, x)
-
-
-class CapturedStep:
-    """``fn(state, *args) -> (new state, *outs)`` captured once in a CUDA
-    graph on static copies of its inputs, and replayed.
-
-    ``step(state, *args)`` copies each input leaf into its static buffer
-    (a leaf that already is that buffer is not copied), replays the graph on
-    the current stream and returns ``(state, *outs)``: ``state`` is the
-    static state, which the graph itself overwrites with the new state, so a
-    chain of replays copies no state; ``outs`` are cloned out of the graph's
-    pool unless ``clone_outs`` is False (then the next replay overwrites
-    them). Constants (weights, parameters) are bound in ``fn`` and baked in
-    by address, as is every Python number it uses: ``key`` names them.
-
-    Capture: GRAPH_WARMUP eager calls on a side stream (real launches,
-    counted), then the capture in PyTorch's global mode, which fails if
-    another thread makes an unsafe CUDA call meanwhile; the hardware loop
-    captures every graph before it starts a thread. A failed capture raises:
-    nothing falls back to eager on the card. The kernels' launch counters
-    count Python calls, so the capture's calls are taken back and each
-    replay adds the graph's own (``per_replay``)."""
-
-    def __init__(self, fn, state, args, key, clone_outs=True):
-        self.key = key
-        self._clone = clone_outs
-        self._static = [tree_map(torch.clone, a) for a in (state, *args)]
-        self._dst = [leaf for a in self._static for leaf in tree_leaves(a)]
-        device = self._dst[0].device
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(GRAPH_WARMUP):
-                fn(*self._static)
-        torch.cuda.current_stream(device).wait_stream(side)
-        counters = _launch_counters()
-        before = [c.launches for c in counters]
-        self._graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self._graph, stream=side):
-                out = fn(*self._static)
-                self._copy_back(tree_leaves(out[0]))
-        finally:
-            captured = [c.launches - n for c, n in zip(counters, before)]
-            for c, n in zip(counters, before):
-                c.launches = n
-        self._counted = [(c, n) for c, n in zip(counters, captured) if n]
-        self.per_replay = {c.__name__: n for c, n in self._counted}
-        self._outs = tuple(out[1:])
-
-    def _copy_back(self, new):
-        """(inside the capture) the new state into the static state. A new
-        leaf that aliases another static buffer is cloned first, so no copy
-        reads a buffer an earlier copy wrote."""
-        state = tree_leaves(self._static[0])
-        if len(new) != len(state):
-            raise ValueError(f"the step returns {len(new)} state leaves for {len(state)}")
-        held = {t.untyped_storage().data_ptr() for t in self._dst}
-        same = [n.data_ptr() == d.data_ptr() and n.shape == d.shape for n, d in zip(new, state)]
-        new = [n if s or n.untyped_storage().data_ptr() not in held else n.clone()
-               for n, s in zip(new, same)]
-        for d, n, s in zip(state, new, same):
-            if not s:
-                d.copy_(n)
-
-    def __call__(self, state, *args):
-        src = [leaf for a in (state, *args) for leaf in tree_leaves(a)]
-        if len(src) != len(self._dst):
-            raise ValueError(f"{self.key}: {len(src)} input leaves, captured with {len(self._dst)}")
-        for d, s in zip(self._dst, src):
-            if s.data_ptr() == d.data_ptr() and s.shape == d.shape:
-                continue
-            if s.shape != d.shape or s.dtype != d.dtype:
-                raise ValueError(f"{self.key}: input {tuple(s.shape)} {s.dtype}, captured "
-                                 f"with {tuple(d.shape)} {d.dtype}")
-            d.copy_(s)
-        self._graph.replay()
-        for c, n in self._counted:
-            c.launches += n
-        outs = tuple(_clone_out(o) for o in self._outs) if self._clone else self._outs
-        return (self._static[0], *outs)
-
-
-def graphed(fn, state, args, key, clone_outs=True):
-    """``fn`` as a `CapturedStep` on the card; ``fn`` itself on the CPU,
-    where CUDA graphs do not exist."""
-    if tree_leaves(state)[0].device.type != "cuda":
-        return fn
-    return CapturedStep(fn, state, args, key, clone_outs)
 
 
 def make_hw_control_tick(
@@ -529,8 +423,7 @@ def make_hw_control_tick(
     # est_core alone; the MPC thread runs ctrl_core on published estimates)
     tick.est_core = est_core
     tick.ctrl_core = ctrl_core
-    # what a capture bakes in besides the bound constants, and its graphs
-    tick.key = (horizon, opts, max_height_cmd_err, gait_freq)
+    # the graphs of its parts (`loop_step`)
     tick.graphs = {}
     return tick
 
@@ -538,9 +431,9 @@ def make_hw_control_tick(
 def loop_step(tick, part: str, wts, rho_fix, kp_joint, kd_joint, state, args):
     """A part of ``tick`` with the run's constants bound, as the loop calls
     it; on the card a `CapturedStep` (``state`` and ``args`` are the
-    capture's example inputs), kept in ``tick.graphs`` under its key (the
-    part, ``tick.key``, the dtype, device and input shapes, and the bound
-    constants):
+    capture's example inputs), captured now if the `Graphed` that
+    ``tick.graphs`` keeps for the part and the bound constants has none for
+    these inputs' signature:
 
     - "tick": ``(carry, sensors, dt, joy, lead) -> (carry, cmd_mat, info)``,
       the two-tier tick;
@@ -562,12 +455,11 @@ def loop_step(tick, part: str, wts, rho_fix, kp_joint, kd_joint, state, args):
             return kf, torch.cat([pos, vel])
     else:
         raise ValueError(f"no part {part!r} of the tick")
-    leaves = [leaf for a in (state, *args) for leaf in tree_leaves(a)]
-    key = (part, *tick.key, leaves[0].dtype, leaves[0].device,
-           tuple(tuple(t.shape) for t in leaves), tuple(id(c) for c in consts))
+    key = (part, tuple(id(c) for c in consts))
     if key not in tick.graphs:
-        tick.graphs[key] = graphed(fn, state, args, key, clone_outs=part != "est")
-    return tick.graphs[key]
+        tick.graphs[key] = Graphed(fn, chain=True, clone_outs=part != "est",
+                                   label=f"the hardware loop's {part}")
+    return tick.graphs[key].captured(state, *args)
 
 
 # flat f32 estimate frame on the estimate bus (three-tier mode):
@@ -723,9 +615,8 @@ class SimGo1Peer(threading.Thread):
         with _on(self._cuda_stream):
             zero = torch.zeros((12, 5), dtype=self._dtype, device=self._device)
             # period(state, cmd_mat) -> (state, the 44 values `_step` pulls)
-            self.period = graphed(self._period_fn, rs, (zero,),
-                                  ("peer", n_sub, self._dt, self._dtype, self._device),
-                                  clone_outs=False)
+            self.period = Graphed(self._period_fn, chain=True, clone_outs=False,
+                                  label="the peer's period").captured(rs, zero)
             self._rs, _ = self._step(rs, zero)
 
     def _period_fn(self, rs, cmd_mat):

@@ -34,6 +34,7 @@ from quaternion_mpc_tpu_torch.solver.problem import (
     SolverOptions,
     TrajOptProblem,
 )
+from quaternion_mpc_tpu_torch.utils.graphs import Graphed
 
 GRAVITY = 9.81
 
@@ -162,10 +163,21 @@ SCENARIOS = {
 }
 
 
+# solve_scenario's solves, one `Graphed` for each scenario, its arguments
+# and the device: a later call with the same ones replays the graph the first
+# captured, whose warm-ups and capture cost about three eager solves
+_SOLVES = {}
+
+
 def solve_scenario(name: str, **kwargs):
-    """Build + solve a named branch scenario; returns (solution, summary)."""
+    """Build + solve a named branch scenario; returns (solution, summary).
+    On the card the solve is a CUDA graph (the JAX package jits it), kept
+    for later calls with the same name and arguments (`_SOLVES`)."""
     spec, prob, opts = SCENARIOS[name](**kwargs)
-    sol = make_solver(spec, opts)(prob)
+    key = (name, _bridge.resolve_device(kwargs.get("device")), *sorted(kwargs.items()))
+    if key not in _SOLVES:
+        _SOLVES[key] = Graphed(make_solver(spec, opts), label=f"solve_scenario {name}")
+    sol = _SOLVES[key](prob)
     qi = spec.quat_idx
     q_end = sol.xs[-1, qi : qi + 4]
     q_ref = prob.cost.x_ref[-1, qi : qi + 4]
@@ -272,12 +284,16 @@ def make_receding_step(name: str, opts: SolverOptions = None, **scenario_kw):
 
 def run_closed_loop(name: str, n_ticks: int = 100, opts: SolverOptions = None,
                     **scenario_kw):
-    """Drive a branch scenario's receding-horizon loop; returns a summary."""
+    """Drive a branch scenario's receding-horizon loop; returns a summary.
+    On the card the tick is a CUDA graph (the JAX loop jits it), replayed
+    each tick with the carry chained in the graph's own buffers; the host
+    reads ``u_max`` after each, as the JAX loop does."""
     step, carry = make_receding_step(name, opts=opts, **scenario_kw)
+    tick = Graphed(step, chain=True, label=f"run_closed_loop {name}")
     u_hi = 0.0
     m = None
     for _ in range(max(1, n_ticks)):
-        carry, m = step(carry)
+        carry, m = tick(carry)
         u_hi = max(u_hi, float(m["u_max"]))
     return {
         "final_att_err": float(m["att_err"]),

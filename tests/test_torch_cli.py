@@ -159,3 +159,129 @@ def test_run_hardware_hands_the_loop_its_options(capsys, monkeypatch):
 def test_unknown_config_is_refused():
     with pytest.raises(SystemExit):
         tcli.main(["bench_solver", "--config", "no_such"] + CPU)
+
+
+# ---------------------------------------------------------------------------
+# The entry points' CUDA graphs (`utils.graphs`): what a graph's key names,
+# and that on the CPU every entry point runs its function itself.
+# ---------------------------------------------------------------------------
+
+def _key_inputs(change):
+    """A graphed function's arguments, with one thing a graph bakes in of
+    them changed."""
+    import torch
+
+    x = torch.zeros((4, 3), dtype=torch.float32)
+    w = torch.ones(3, dtype=torch.float32).expand(4, 3)
+    lead = 0.0
+    if change == "batch":
+        x = torch.zeros((8, 3), dtype=torch.float32)
+    elif change == "dtype":
+        x = torch.zeros((4, 3), dtype=torch.float64)
+    elif change == "device":
+        x = torch.zeros((4, 3), dtype=torch.float32, device="meta")
+    elif change == "strides":
+        w = w.contiguous()
+    elif change == "python_value":
+        lead = 0.02
+    elif change == "structure":
+        lead = None
+    return x, {"w": w, "lead": lead}
+
+
+KEY_CHANGES = ["batch", "dtype", "device", "strides", "python_value", "structure"]
+
+
+@pytest.mark.parametrize("change", KEY_CHANGES)
+def test_graph_key_changes_with_everything_a_graph_bakes_in(change):
+    from quaternion_mpc_tpu_torch.utils import graphs
+
+    base = graphs.graph_key(_key_inputs(None))
+    assert graphs.graph_key(_key_inputs(None)) == base  # new tensors, the same layouts
+    assert graphs.graph_key(_key_inputs(change)) != base
+    hash(graphs.graph_key(_key_inputs(change)))
+
+
+@pytest.mark.parametrize("change", KEY_CHANGES)
+def test_graphed_captures_once_for_each_signature(monkeypatch, change):
+    """A `Graphed` keeps one capture for each signature of its inputs: new
+    inputs of a signature it has seen replay that capture, a changed one is
+    captured anew. (Capture itself needs the card: here a stand-in records
+    it.)"""
+    from quaternion_mpc_tpu_torch.utils import graphs
+
+    made = []
+
+    def capture(fn, args, label, generators):
+        made.append(label)
+        return fn
+
+    monkeypatch.setattr(graphs, "on_card", lambda tree: True)
+    monkeypatch.setattr(graphs, "CapturedCall", capture)
+    g = graphs.Graphed(lambda x, d: x + 1, label="test")
+    for inputs, captures in ((None, 1), (None, 1), (change, 2), (change, 2), (None, 2)):
+        out = g(*_key_inputs(inputs))
+        assert len(made) == captures and len(g.graphs) == captures
+        assert out.shape == _key_inputs(inputs)[0].shape
+    assert made == ["test", "test"]
+
+
+def test_a_chained_graph_keys_its_state_by_shape_not_strides():
+    """A chain of replays hands the step its own (dense) state buffers after
+    the first call: the state's strides are not part of the key, its shape
+    and dtype are."""
+    import torch
+
+    from quaternion_mpc_tpu_torch.utils import graphs
+
+    args = (torch.zeros(3),)
+    dense = graphs.graph_key(args, state=torch.zeros((4, 3)))
+    assert graphs.graph_key(args, state=torch.zeros((3, 4)).T) == dense
+    assert graphs.graph_key(args, state=torch.zeros((5, 3))) != dense
+    assert graphs.graph_key(args, state=torch.zeros((4, 3), dtype=torch.float64)) != dense
+
+
+@pytest.mark.parametrize("chain", [False, True], ids=["call", "chain"])
+def test_graphed_runs_the_function_itself_on_the_cpu(chain):
+    import torch
+
+    from quaternion_mpc_tpu_torch.utils import graphs
+
+    calls = []
+
+    def fn(x, y):
+        calls.append(1)
+        return (x + y, y * 2) if chain else {"sum": x + y, "n": 3}
+
+    g = graphs.Graphed(fn, chain=chain)
+    x, y = torch.ones(2), torch.full((2,), 2.0)
+    for _ in range(3):
+        out = g(x, y)
+        x = out[0] if chain else x
+    assert len(calls) == 3 and g.graphs == {}
+    assert torch.equal(out[0], torch.full((2,), 7.0)) if chain else out["n"] == 3
+
+
+def _no_capture(monkeypatch):
+    """Every capture raises: on the CPU no entry point may try one."""
+    from quaternion_mpc_tpu_torch.utils import graphs
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA graph was captured for CPU tensors")
+
+    monkeypatch.setattr(graphs, "CapturedCall", refuse)
+    monkeypatch.setattr(graphs, "CapturedStep", refuse)
+
+
+@pytest.mark.parametrize("argv", [
+    ["bench_solver", "--batch", "2", "--iters", "1"],
+    ["bench_solver", "--batch", "2", "--iters", "1", "--config", "gazebo_go1_convex_mpc"],
+    ["run_standing", "--batch", "2", "--steps", "2", "--push", "20", "--push-at", "1"],
+    ["run_trot", "--batch", "2", "--steps", "2", "--horizon", "4"],
+    ["run_fleet", "--batch", "2", "--steps", "1", "--horizon", "4"],
+    ["run_scenario", "--name", "spider_dog", "--closed_loop", "--steps", "1"],
+], ids=["bench_quat", "bench_convex", "standing_push", "trot", "run_fleet", "receding"])
+def test_entry_points_run_eagerly_on_the_cpu(capsys, monkeypatch, argv):
+    _no_capture(monkeypatch)
+    out = _run(capsys, argv + CPU)
+    assert all(np.isfinite(v) for v in out.values() if isinstance(v, float))

@@ -390,3 +390,90 @@ def test_standup_ramp_reaches_the_stand_pose():
                                np.asarray(crouch).reshape(-1), atol=0.02)
     np.testing.assert_allclose(cmd.reshape(4, 3, 5)[..., 0].reshape(-1).numpy(),
                                np.asarray(tstandup.STAND_POSE), atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The capture helper the loop's graphs share with the CLI's (`utils.graphs`).
+# CUDA graphs do not exist on the CPU: what runs here is what a replay does
+# on the host, the static buffers' copies and checks.
+# ---------------------------------------------------------------------------
+
+def test_the_loop_captures_with_the_shared_helper():
+    """`loop_step` keeps one `Graphed` for each part and set of bound
+    constants in ``tick.graphs``; on the CPU what it returns runs the part
+    itself."""
+    from quaternion_mpc_tpu_torch.utils import graphs
+
+    assert thw.CapturedStep is graphs.CapturedStep and thw.Graphed is graphs.Graphed
+    assert thw.GRAPH_WARMUP == graphs.GRAPH_WARMUP == 2
+
+    def tick(c, s, dt, joy, wts, rho_fix, kp, kd, lead):
+        return c + s * dt + wts + lead, c * kp, {"kd": kd}
+
+    tick.graphs = {}
+    consts = [torch.full((2,), v) for v in (1.0, 2.0, 3.0, 4.0)]
+    state, args = torch.zeros(2), (torch.ones(2), torch.tensor(0.5), None, torch.tensor(0.25))
+    step = thw.loop_step(tick, "tick", *consts, state, args)
+    new, cmd, info = step(state, *args)
+    assert torch.equal(new, torch.full((2,), 1.75)) and torch.equal(info["kd"], consts[3])
+    assert thw.loop_step(tick, "tick", *consts, state, args) is step
+    (key, g), = tick.graphs.items()
+    assert key == ("tick", tuple(id(c) for c in consts)) and g.chain and g.graphs == {}
+    other = [c.clone() for c in consts]
+    thw.loop_step(tick, "tick", *other, state, args)
+    assert len(tick.graphs) == 2
+    with pytest.raises(ValueError, match="no part"):
+        thw.loop_step(tick, "servo", *consts, state, args)
+
+
+def _example_inputs():
+    """A tick's inputs: a NamedTuple carry with a None leaf, a broadcast
+    (stride 0) weight, a dict with a Python value."""
+    n = len(tgoals.JoySample._fields)
+    carry = tgoals.JoySample(*(torch.full((2,), float(i), dtype=TD) for i in range(n)))
+    w = torch.arange(3.0, dtype=TD).expand(4, 3)
+    return (carry, None, w, {"lead": 0.0, "x": torch.zeros((4, 2), dtype=TD)})
+
+
+@pytest.mark.parametrize("change", ["leaf_count", "shape", "dtype", "strides", "python_value",
+                                    "structure"])
+def test_a_replay_refuses_inputs_the_capture_did_not_see(change):
+    from quaternion_mpc_tpu_torch.utils import graphs
+
+    static = graphs.StaticInputs(_example_inputs(), "tick")
+    carry, none, w, d = _example_inputs()
+    if change == "leaf_count":
+        none = torch.zeros(1)
+    elif change == "shape":
+        d = {**d, "x": torch.zeros((5, 2), dtype=TD)}
+    elif change == "dtype":
+        d = {**d, "x": torch.zeros((4, 2), dtype=torch.float32)}
+    elif change == "strides":
+        w = w.contiguous()
+    elif change == "python_value":
+        d = {**d, "lead": 0.02}
+    elif change == "structure":
+        d = {"x": d["x"], "lead": d["lead"]}
+    with pytest.raises(ValueError, match="tick"):
+        static.load((carry, none, w, d))
+
+
+def test_static_inputs_copy_what_a_replay_reads():
+    """The buffers keep each input's layout, a broadcast dimension's one
+    column included; a load copies new values in, and skips a tensor that
+    already is its buffer."""
+    from quaternion_mpc_tpu_torch.utils import graphs
+
+    carry, none, w, d = _example_inputs()
+    static = graphs.StaticInputs((carry, none, w, d), "tick", dense=len(carry))
+    s_carry, s_none, s_w, s_d = static.args
+    assert s_none is None and s_d["lead"] == 0.0 and type(s_carry) is type(carry)
+    assert s_w.stride() == (0, 1) and torch.equal(s_w, w)
+    assert all(a.data_ptr() != b.data_ptr() and torch.equal(a, b) for a, b in zip(s_carry, carry))
+    w2 = (10.0 + torch.arange(3.0, dtype=TD)).expand(4, 3)
+    static.load((carry._replace(mode_switch=carry.mode_switch + 1), None, w2, d))
+    assert torch.equal(static.args[2], w2)
+    assert torch.equal(static.args[0].mode_switch, carry.mode_switch + 1)
+    before = s_carry.velx.clone()
+    static.load((s_carry, None, w2, d))  # the static carry itself: nothing copied
+    assert torch.equal(static.args[0].velx, before)

@@ -34,10 +34,20 @@ Prints the card's name and power limit, then one JSON object:
   warm-up and the device operations of one traced, with its `expansions`
   ranges as the convex step's;
 - one whole falling_cat 3 x 25 solve traced: its device operations (~75k),
-  busy ms and each hand-written kernel's launches and device ms.
-It uses only functions the port has had since its hardware loop was graphed,
-and `chip_smoke.py`'s helpers of the same checkout (the last three parts use
-none of them).
+  busy ms and each hand-written kernel's launches and device ms;
+- the fleet step, the walking tick, the convex step and the falling_cat
+  3 x 25 solve as the entry points run them on the card, replayed from a
+  CUDA graph (`utils.graphs.Graphed`; the parts named `*_graphed`): warm-up
+  and capture seconds, the graph's pool bytes, p50 / min / max ms of 10
+  replays (3 for the falling_cat solve) after 2, each ending in a
+  synchronise, the same of the graph alone on its buffers (no copy in or
+  clone out) and of the host's part of a call (no synchronise), and the
+  device operations and busy ms of one traced replay.
+The parts that are not graphed use only functions the port has had since
+its hardware loop was graphed, and `chip_smoke.py`'s helpers of the same
+checkout (the last three of them use none); the graphed parts need
+`utils.graphs` (since the entry points replay graphs), so name the other
+parts when timing an older checkout.
 """
 
 from __future__ import annotations
@@ -224,6 +234,79 @@ def falling_cat_trace(device):
     return _trace(lambda: solver(prob))
 
 
+def _graphed(fn, args, chain=False, runs=10, ranges=()):
+    """``fn`` as the entry points replay it (`Graphed`): its capture's
+    seconds and pool bytes, p50 / min / max of ``runs`` replays after 2,
+    and one traced replay. With ``chain`` the state is carried replay to
+    replay in the graph's own buffers."""
+    from quaternion_mpc_tpu_torch.utils.graphs import Graphed
+
+    g = Graphed(fn, chain=chain)
+    cap = g.captured(*args)
+    state = [args[0]]
+
+    def replay():
+        if chain:
+            state[0], *_ = g(state[0], *args[1:])
+        else:
+            g(*args)
+
+    times = _timed(replay, runs=runs, warmup=2)
+    # where a replayed call's time goes: the graph alone on its buffers, and
+    # the host's part of a call (the copies in, the replay's launch, the
+    # clones out) with no synchronise
+    graph_alone = _timed(cap.graph.replay, runs=runs, warmup=1)
+    host = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay()
+        host.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return {"capture_s": cap.capture_s, "pool_bytes": cap.pool_bytes,
+            "per_replay": cap.per_replay, "replay_ms_p50_min_max": _ms(times),
+            "graph_alone_ms_p50_min_max": _ms(graph_alone),
+            "host_ms_a_call_p50_min_max": _ms(host), **_trace(replay, ranges)}
+
+
+def fleet_step_graphed(device):
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.control import quat_mpc
+    from quaternion_mpc_tpu_torch.solver.problem import SolverOptions
+
+    opts = SolverOptions(al_iterations=2, ilqr_iterations=5, max_linesearch=8)
+    inputs = examples.standing_batch(FLEET_B, 10, torch.float32, device)
+    return _graphed(quat_mpc.make_fleet_controller(10, opts), inputs)
+
+
+def walking_tick_graphed(device):
+    import chip_smoke as cs
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.runtime import step as rt
+
+    step = rt.make_fleet_walking_step(10, cs._rti_opts(), warm_start=True)
+    carry, sp, joy = examples.walking_batch(FLEET_B, 10, torch.float32, device, velx=0.3)
+    return _graphed(step, (carry, sp, joy), chain=True)
+
+
+def convex_step_graphed(device):
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.control import convex_mpc
+    from quaternion_mpc_tpu_torch.solver.problem import SolverOptions
+
+    opts = SolverOptions(al_iterations=1, ilqr_iterations=5, max_linesearch=8)
+    inputs = examples.standing_batch(FLEET_B, 10, torch.float32, device, controller="convex")
+    return _graphed(convex_mpc.make_fleet_controller(10, opts), inputs, ranges=("expansions",))
+
+
+def falling_cat_solve_graphed(device):
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.solver import al_ilqr
+
+    spec, prob, opts = examples.falling_cat_fleet(FLEET_B, torch.float32, device, seed=0)
+    return _graphed(al_ilqr.make_solver(spec, opts), (prob,), runs=3)
+
+
 PARTS = {
     "hardware_tick_h6_1x3": lambda device: hardware_tick(device, 6, 1, 3),
     "hardware_tick_h8_2x3": lambda device: hardware_tick(device, 8, 2, 3),
@@ -233,6 +316,10 @@ PARTS = {
     "convex_step_1x5_B4096": convex_step,
     "falling_cat_solve_3x25_B4096": falling_cat_solve,
     "falling_cat_trace_3x25_B4096": falling_cat_trace,
+    "fleet_step_2x5_B4096_graphed": fleet_step_graphed,
+    "walking_tick_1x3_B4096_graphed": walking_tick_graphed,
+    "convex_step_1x5_B4096_graphed": convex_step_graphed,
+    "falling_cat_solve_3x25_B4096_graphed": falling_cat_solve_graphed,
 }
 
 
