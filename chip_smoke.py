@@ -428,10 +428,11 @@ def _check(cond, what):
         raise AssertionError(what)
 
 
-# K2's and K8's launches on each counted path of this process, by
-# instantiation, for the kernels line
+# K2's, K8's and K9's launches on each counted path of this process, by
+# instantiation (K9's by entry, then instantiation), for the kernels line
 K2_LAUNCHES = {}
 K8_LAUNCHES = {}
+K9_LAUNCHES = {}
 
 
 def _k8():
@@ -441,16 +442,48 @@ def _k8():
     return expansions.knot_expansions
 
 
-def _k2_count(path, n, instantiation="quat_srb_midpoint", *, k8):
+def _k9():
+    """K9's two wrappers (`rollout`, `price`), whose ``launches`` count
+    their launches."""
+    from quaternion_mpc_tpu_torch.kernels import rollout
+
+    return rollout.rollout, rollout.price
+
+
+def _zero_k9():
+    for entry in _k9():
+        entry.launches = 0
+
+
+def _k2_count(path, n, instantiation="quat_srb_midpoint", *, k8, k9=None, solves=None):
     """Adds ``n`` K2 launches, as counted on a path of this process, to
     ``path``'s of ``instantiation`` in the kernels line, and ``k8``, K8's
     launches counted on the same run, to the path's K8 launches of the same
     instantiation, after holding them equal: K8 has every model K2 has, and
-    both run once an iLQR iteration."""
+    both run once an iLQR iteration. ``k9``: K9's (rollout, price) launches
+    on the same run (where not given, its wrappers' counts, which the path
+    set to 0 with K8's): K9 runs where K2 runs, its rollout once a solve
+    (``solves``, where the path knows them) and its pricing al + 1 times a
+    solve (the multiplier updates, then the final cost), so that the AL
+    iterations (pricings less rollouts) divide K2's al x ilqr; where K2 runs
+    not, neither does K9."""
+    if k9 is None:
+        k9 = tuple(entry.launches for entry in _k9())
     for counts, launched in ((K2_LAUNCHES, n), (K8_LAUNCHES, k8)):
         paths = counts.setdefault(instantiation, {})
         paths[path] = paths.get(path, 0) + launched
+    for entry, launched in zip(("rollout", "price"), k9):
+        paths = K9_LAUNCHES.setdefault(entry, {}).setdefault(instantiation, {})
+        paths[path] = paths.get(path, 0) + launched
     _check(k8 == n, f"{path}: K8 launches {k8}, expected {n} beside {n} of K2's {instantiation}")
+    r, p = k9
+    if n == 0:
+        _check(r == p == 0, f"{path}: K9's (rollout, price) launched {k9} where K2 did not")
+        return
+    _check(r >= 1 and p > r and n % (p - r) == 0 and (solves is None or r == solves),
+           f"{path}: K9's (rollout, price) launches {k9} beside {n} of K2's"
+           + ("" if solves is None else f" over {solves} solves")
+           + ": expected its rollout once a solve and its pricing al + 1 times")
 
 
 def _first_pass(prob, spec):
@@ -1118,6 +1151,183 @@ def phase_expansions_timing(device):
     return by_shape
 
 
+# K9 (`kernels.rollout`: the solve's open-loop rollout and its AL pricing)
+# against its plain versions at K2's checked shapes and models (K2_CHECKED,
+# the hard case and the runaway case), f32 and f64: each path's us_init
+# rolled out, the rollout priced (J and λ̄ together, the multiplier update's
+# λ̄ alone, the final cost: no λ at ρ = 1e-30) and a mid-solve iterate (the
+# plain line search's output after one iteration) priced. At B > 1 xs and λ̄
+# must equal the plain version's bit for bit (NaN matching NaN), J within
+# K9_RTOL of max(|J|, 1) (its elements that differ counted); at B = 1 (where
+# PyTorch reduces a contiguous sum by another scheme) every output within
+# K9_RTOL of its scale. Timed at each instantiation's main shape (K2_MAIN_OF).
+K9_RTOL = {torch.float64: 1e-12, torch.float32: 1e-6}
+K9_ENTRIES = {"rollout": "quaternion_mpc_tpu/solver/fleet.py:728",
+              "price": "quaternion_mpc_tpu/solver/fleet.py:388"}
+
+
+def _k9_differ(got, want):
+    """(elements whose values differ, NaN matching NaN; elements non-finite
+    on one side only; the largest |difference| of the finite ones)."""
+    nan = torch.isnan(got) & torch.isnan(want)
+    differ = int(((got != want) & ~nan).sum())
+    one_side = int((torch.isfinite(got) != torch.isfinite(want)).sum())
+    finite = torch.isfinite(got) & torch.isfinite(want)
+    worst = float((got - want)[finite].abs().max()) if bool(finite.any()) else 0.0
+    return differ, one_side, worst
+
+
+def _k9_rel(got, want, per_scenario=False):
+    """The largest |difference| of the finite elements over the largest
+    finite |want| (``per_scenario``: over max(|want|, 1) each)."""
+    finite = torch.isfinite(got) & torch.isfinite(want)
+    if not bool(finite.any()):
+        return 0.0
+    w = torch.where(finite, want, 0.0).double()
+    scale = w.abs().clamp_min(1.0) if per_scenario else w.abs().max().clamp_min(1e-300)
+    return float((torch.where(finite, got.double() - w, 0.0).abs() / scale).max())
+
+
+def _k9_lam(prob, N, B, dtype, device, seed=5):
+    """Multipliers drawn (half zero, the rest up to 200: some rows active,
+    some not)."""
+    nc = prob.Cu.shape[0]
+    rng = np.random.default_rng(seed)
+    lam = 200.0 * rng.random((N, nc, B)) * (rng.random((N, nc, B)) < 0.5)
+    return torch.from_numpy(lam).to(device, dtype)
+
+
+def phase_rollout_vs_plain(device):
+    """K9 against its plain versions (see K9_RTOL's note). Returns
+    ({entry: {instantiation: the f32 kernel's largest absolute error at its
+    main shape}}, {"xs" / "lam_bar" / "J": elements that differ at B > 1,
+    of}), holding xs and λ̄ to 0 there."""
+    from quaternion_mpc_tpu_torch.kernels import line_search as k2
+    from quaternion_mpc_tpu_torch.kernels import rollout as k9
+
+    worst = {entry: {} for entry in K9_ENTRIES}
+    differ = {"xs": [0, 0], "lam_bar": [0, 0], "J": [0, 0]}
+    faults = []
+    for dtype in (torch.float32, torch.float64):
+        rtol = K9_RTOL[dtype]
+        for tag, name, (spec, prob, kw) in _k2_cases(dtype, device):
+            B, N = kw["xs"].shape[-1], kw["us"].shape[0]
+            us = prob.us_init
+            before = (k9.rollout.launches, k9.price.launches)
+            xs = k9.rollout(spec, prob, us)
+            want_xs = k9.open_loop_rollout_ref(spec, prob, us)
+            lam = _k9_lam(prob, N, B, dtype, device)
+            it = k2.line_search_ref(spec, prob, **kw)
+            tiny = torch.full((), 1e-30, dtype=dtype, device=device)
+            runs = [("xs", xs, want_xs, False)]
+            for what, (x, u, l, r, cost, bar) in {
+                    "rollout priced": (xs, us, lam, kw["rho"], True, True),
+                    "multiplier update": (xs, us, lam, kw["rho"], False, True),
+                    "final cost": (xs, us, None, tiny, True, False),
+                    "mid-solve iterate priced": (it[0], it[1], lam, kw["rho"], True, True)}.items():
+                got = k9.price(spec, prob, x, u, l, r, cost, bar)
+                want = k9.price_ref(spec, prob, x, u, l, r, cost, bar)
+                runs += [(f"{what} J", got[0], want[0], True)] if cost else []
+                runs += [(f"{what} λ̄", got[1], want[1], False)] if bar else []
+            torch.cuda.synchronize()
+            _check((k9.rollout.launches, k9.price.launches) == (before[0] + 1, before[1] + 4),
+                   f"K9 {tag}: the rollout or the pricing did not launch")
+            line = []
+            for what, got, want, per_scenario in runs:
+                n, one_side, abs_err = _k9_differ(got, want)
+                rel = _k9_rel(got, want, per_scenario)
+                kind = "xs" if what == "xs" else "J" if what.endswith("J") else "lam_bar"
+                if B > 1:
+                    differ[kind][0] += n
+                    differ[kind][1] += got.numel()
+                    if kind != "J" and n:
+                        faults.append(f"{tag} {what}: {n} of {got.numel()} elements differ "
+                                      f"(largest |difference| {abs_err:.3e})")
+                if one_side or rel > rtol:
+                    faults.append(f"{tag} {what}: {one_side} elements non-finite on one side, "
+                                  f"{rel:.3e} of scale (tol {rtol})")
+                entry = "rollout" if what == "xs" else "price"
+                if dtype == torch.float32 and tag == K2_MAIN_OF[K2_MODEL[name]]:
+                    worst[entry][K2_MODEL[name]] = max(worst[entry].get(K2_MODEL[name], 0.0),
+                                                       abs_err)
+                line.append(f"{what} {n} differ ({rel:.1e})")
+            print(f"[kernel] K9 {tag} vs plain: " + "; ".join(line))
+    print(f"[kernel] K9: at B > 1, of the plain version's elements, xs {differ['xs'][0]} of "
+          f"{differ['xs'][1]:,} differ, λ̄ {differ['lam_bar'][0]} of {differ['lam_bar'][1]:,}, J "
+          f"{differ['J'][0]} of {differ['J'][1]:,}")
+    _check(not faults, "K9 against its plain versions:\n" + "\n".join(faults))
+    return worst, differ
+
+
+# K9 alone at each instantiation's main shape (K2_MAIN_OF's, by K2_TIMED's
+# tags), and the fleet step's f64 and B=1 shapes
+K9_TIMED = ((torch.float32, "standing", HORIZON, 8, 4096),
+            (torch.float32, "convex", HORIZON, 8, 4096),
+            (torch.float64, "convex_fixture", 30, 12, 256),
+            (torch.float32, "falling_cat", 40, 12, 4096),
+            (torch.float64, "standing", HORIZON, 8, 4096), (torch.float32, "standing", 6, 12, 1))
+
+
+def phase_rollout_timing(device):
+    """K9's entries alone at K9_TIMED: the rollout of us_init, the
+    multiplier update (λ̄ alone) and the final cost (J alone, no λ), each by
+    CUDA events around a replayed graph of 50 launches beside its bound
+    (`kernels.rollout.rollout_work`, `price_work` over the card's peaks),
+    the host's time in one call and the plain version's time. Returns {tag:
+    {"ms", "host_enqueue_ms", "plain_ms", "bound_ms", "bound_by"}}, tags
+    "<K2's shape tag> <call>"."""
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.kernels import rollout as k9
+
+    by_shape = {}
+    for dtype, name, horizon, n_alphas, batch in K9_TIMED:
+        spec, prob, kw = examples.line_search_case(name, batch, dtype, device, horizon, n_alphas)
+        us, xs = prob.us_init, kw["xs"]
+        lam = _k9_lam(prob, horizon, batch, dtype, device)
+        tiny = torch.full((), 1e-30, dtype=dtype, device=device)
+        calls = {
+            "rollout": (lambda: k9.rollout(spec, prob, us),
+                        lambda: k9.open_loop_rollout_ref(spec, prob, us),
+                        k9.rollout_work(spec, prob, us)),
+            "multiplier update": (
+                lambda: k9.price(spec, prob, xs, us, lam, kw["rho"], False, True),
+                lambda: k9.price_ref(spec, prob, xs, us, lam, kw["rho"], False, True),
+                k9.price_work(spec, prob, xs, us, lam, kw["rho"], False, True)),
+            "final cost": (lambda: k9.price(spec, prob, xs, us, None, tiny),
+                           lambda: k9.price_ref(spec, prob, xs, us, None, tiny),
+                           k9.price_work(spec, prob, xs, us, None, tiny)),
+        }
+        for call, (launch, plain, work) in calls.items():
+            ms = _graph_time(launch, reps=50) * 1e3
+            host_ms = _enqueue_time(launch) * 1e3
+            plain_ms = _event_time(plain, reps=3) * 1e3
+            bound_ms, bound_by = _bound(work, dtype)
+            tag = f"{_k2_shape(name, dtype, horizon, n_alphas, batch)} {call}"
+            by_shape[tag] = {"ms": ms, "host_enqueue_ms": host_ms, "plain_ms": plain_ms,
+                             "bound_ms": bound_ms, "bound_by": bound_by}
+            print(f"[timing] K9 {tag}: kernel {ms:.4f} ms (graph replay; host {host_ms:.4f} ms "
+                  f"a call), bound {bound_ms:.5f} ms by {bound_by} ({100 * bound_ms / ms:.2f}% "
+                  f"of it reached), plain {plain_ms:.3f} ms")
+    return by_shape
+
+
+def _k9_kernel(name):
+    """(entry, instantiation, dtype, feet) of a K9 kernel's mangled name."""
+    m = re.search(r"(rollout|price)_kernelI([fd]).*?(QuatSrbMidpoint|EulerSrb|AttitudeMidpoint)"
+                  r"I(?:Li(\d)E)?(?:Lb([01])E)?", name)
+    inst = {"QuatSrbMidpoint": "quat_srb_midpoint", "AttitudeMidpoint": "attitude_midpoint",
+            "EulerSrb": "euler_srb_euler" if m[5] == "1" else "euler_srb_midpoint"}[m[3]]
+    return m[1], inst, "float32" if m[2] == "f" else "float64", int(m[4] or 1)
+
+
+def _k9_registers(kbuild, lib):
+    """K9's registers, stack and spill a thread by entry and instantiation,
+    as ptxas reported them."""
+    return {"{} {} {} n_feet={}".format(*_k9_kernel(k["name"])): [k["registers"], k["stack"],
+                                                                 k["stores"]]
+            for k in kbuild.ptxas_report(lib)}
+
+
 # --kernels-only: other builds of K2 (the same source with a build option,
 # and with --k2-baseline another source with the same C interface), held bit
 # for bit against the shipped build at K2_CHECKED's shapes, the hard case and
@@ -1591,6 +1801,7 @@ def phase_main_path(device):
     inputs = {b: examples.standing_batch(b, HORIZON, torch.float32, device) for b in FLEET_SIZES}
 
     rs.riccati_sweep.launches = k2.line_search.launches = _k8().launches = 0
+    _zero_k9()
     counts = []
     outs = {}
     for b in FLEET_SIZES:
@@ -1600,7 +1811,8 @@ def phase_main_path(device):
                        _k8().launches - before[2]))
     torch.cuda.synchronize()
     launches = rs.riccati_sweep.launches
-    _k2_count("fleet_solves_2x5_B256_4096_16384", k2.line_search.launches, k8=_k8().launches)
+    _k2_count("fleet_solves_2x5_B256_4096_16384", k2.line_search.launches, k8=_k8().launches,
+              solves=len(FLEET_SIZES))
 
     _check(counts == [(per_solve, per_solve, per_solve)] * len(FLEET_SIZES),
            f"(K1, K2, K8) launches per solve {counts}, expected {per_solve} each")
@@ -1639,7 +1851,7 @@ def phase_fixture(device):
     b = 256
     prob, gold_us, gold_xs = examples.fixture_fleet_problem(b, torch.float32, device)
     sol = _counted(lambda: solver(prob), f"f32 fixture B={b}", per_solve, per_solve,
-                   path="fixture_fleet_6x10_B256_f32_f64")[0]
+                   path="fixture_fleet_6x10_B256_f32_f64", solves=1)[0]
     gold_cost = examples.fixture_gold_cost(gold_us, gold_xs)
     cost = sol.cost.double().cpu().numpy()
     u0 = sol.us[0].double().cpu().numpy().T
@@ -1656,7 +1868,7 @@ def phase_fixture(device):
 
     prob, gold_us, gold_xs = examples.fixture_fleet_problem(b, torch.float64, device)
     sol = _counted(lambda: solver(prob), f"f64 fixture B={b}", per_solve, per_solve,
-                   path="fixture_fleet_6x10_B256_f32_f64")[0]
+                   path="fixture_fleet_6x10_B256_f32_f64", solves=1)[0]
     us_err = float(np.max(np.abs(sol.us.cpu().numpy().transpose(2, 0, 1) - gold_us)))
     xs_err = float(np.max(np.abs(sol.xs.cpu().numpy().transpose(2, 0, 1) - gold_xs)))
     _check(us_err <= 1e-4 and xs_err <= 1e-5,
@@ -1682,6 +1894,7 @@ def phase_assoc_quality(device):
     prob, gold_us, gold_xs = examples.fixture_fleet_problem(1, torch.float32, device)
     k4.assoc_backward.launches = k4.assoc_scan.launches = rs.riccati_sweep.launches = 0
     k2.line_search.launches = _k8().launches = 0
+    _zero_k9()
     sol = make_fleet_solver(quat_mpc._fleet_spec(), opts)(prob)
     torch.cuda.synchronize()
     counts = (k4.assoc_backward.launches, k4.assoc_scan.launches, rs.riccati_sweep.launches,
@@ -1689,7 +1902,7 @@ def phase_assoc_quality(device):
     _check(counts == (per_solve, 0, 0, per_solve),
            f"auto B=1: (assoc_backward, assoc_scan, K1, K2) launches {counts}, expected "
            f"({per_solve}, 0, 0, {per_solve})")
-    _k2_count("fixture_assoc_6x10_B1_B4", counts[3], k8=_k8().launches)
+    _k2_count("fixture_assoc_6x10_B1_B4", counts[3], k8=_k8().launches, solves=1)
     gold_cost = examples.fixture_gold_cost(gold_us, gold_xs)
     cost = sol.cost.double().cpu().numpy()
     u0 = sol.us[0].double().cpu().numpy().T
@@ -1706,11 +1919,12 @@ def phase_assoc_quality(device):
 
     prob, gold_us, _ = examples.fixture_fleet_problem(4, torch.float64, device)
     k2.line_search.launches = _k8().launches = 0
+    _zero_k9()
     sol = make_fleet_solver(quat_mpc._fleet_spec(), opts, backend="assoc")(prob)
     torch.cuda.synchronize()
     _check(k2.line_search.launches == per_solve,
            f"assoc f64 B=4: K2 launches {k2.line_search.launches}, expected {per_solve}")
-    _k2_count("fixture_assoc_6x10_B1_B4", k2.line_search.launches, k8=_k8().launches)
+    _k2_count("fixture_assoc_6x10_B1_B4", k2.line_search.launches, k8=_k8().launches, solves=1)
     us = sol.us.cpu().numpy().transpose(2, 0, 1)
     us_err = float(np.max(np.abs(us - gold_us)))
     _check(bool(np.all(np.isfinite(us))) and us_err <= 1e-3,
@@ -1861,6 +2075,7 @@ def phase_latency(device):
         for backend in ("auto", "sweep", "sweep", "auto"):
             k4.assoc_backward.launches = k4.assoc_scan.launches = rs.riccati_sweep.launches = 0
             k2.line_search.launches = _k8().launches = 0
+            _zero_k9()
             n = LATENCY_TICKS // 2
             times[backend] += _ticks(ctrls[backend], inputs, n, warm, dual)
             counts = {b: kernel_of[b].launches for b in kernel_of}
@@ -1871,7 +2086,7 @@ def phase_latency(device):
                    f"{k4.assoc_scan.launches}, K2 {k2.line_search.launches}), expected {want} "
                    f"(0, {(n + 1) * per_tick})")
             _k2_count("latency_rows_B1_auto_and_sweep", k2.line_search.launches,
-                      k8=_k8().launches)
+                      k8=_k8().launches, solves=n + 1)
             if backend == "auto":
                 k4_launches += counts["auto"]
                 scan_launches += k4.assoc_scan.launches
@@ -1906,6 +2121,7 @@ def phase_convex(device):
     b = 4096
     inputs = examples.standing_batch(b, HORIZON, torch.float32, device, controller="convex")
     rs.riccati_sweep.launches = k2.line_search.launches = _k8().launches = 0
+    _zero_k9()
     grf, cost = ctrl(*inputs)
     torch.cuda.synchronize()
     launches = rs.riccati_sweep.launches
@@ -1913,7 +2129,7 @@ def phase_convex(device):
            f"convex (K1, K2) launches per solve ({launches}, {k2.line_search.launches}), "
            f"expected ({per_solve}, {per_solve})")
     _k2_count("convex_fleet_1x5_B4096", k2.line_search.launches, "euler_srb_midpoint",
-              k8=_k8().launches)
+              k8=_k8().launches, solves=1)
     _check(tuple(grf.shape) == (b, 4, 3) and tuple(cost.shape) == (b,), "convex output shapes")
     _check(bool(torch.isfinite(grf).all() and torch.isfinite(cost).all()), "convex non-finite")
     mean_fz = grf[..., 2].sum(-1).mean().item()
@@ -1935,13 +2151,14 @@ def phase_convex(device):
 
     b = 256
     k2.line_search.launches = _k8().launches = 0
+    _zero_k9()
     g_cuda, c_cuda = ctrl(*examples.standing_batch(b, HORIZON, torch.float64, device,
                                                    controller="convex"))
     torch.cuda.synchronize()
     _check(k2.line_search.launches == per_solve, f"convex f64: K2 launches "
                                                  f"{k2.line_search.launches}, expected {per_solve}")
     _k2_count("convex_fleet_1x5_B256_f64", k2.line_search.launches, "euler_srb_midpoint",
-              k8=_k8().launches)
+              k8=_k8().launches, solves=1)
     g_cpu, c_cpu = ctrl(*examples.standing_batch(b, HORIZON, torch.float64, "cpu",
                                                  controller="convex"))
     grf_err = (g_cuda.cpu() - g_cpu).abs().max().item()
@@ -2004,21 +2221,24 @@ def phase_profile(ctrl, inputs, step_s, latency, device):
     from quaternion_mpc_tpu_torch.solver import fleet
     from quaternion_mpc_tpu_torch.solver.problem import SolverOptions
 
-    step_profile = _profile_tick(lambda: ctrl(*inputs[4096]), step_s, "B=4096 step",
-                                 (fleet.EXPANSIONS,))
+    ranges = (fleet.EXPANSIONS, fleet.OPEN_LOOP, fleet.PRICING)
+    step_profile = _profile_tick(lambda: ctrl(*inputs[4096]), step_s, "B=4096 step", ranges)
     # the main path's solve on one problem, its expansions by K8 and by the
-    # plain version (an untagged spec): the `expansions` ranges before and after
+    # plain version (an untagged spec), and its open-loop rollout and
+    # pricings by K9 and by the plain versions (a spec without K2's tag):
+    # the ranges before and after
     prob = quat_mpc.build_fleet_problem(*inputs[4096], HORIZON)
     solve_opts = SolverOptions(al_iterations=2, ilqr_iterations=5, max_linesearch=8)
     for how, spec in (("K8", quat_mpc.FLEET_MODEL_SPEC),
-                      ("plain", quat_mpc.FLEET_MODEL_SPEC._replace(expansions=None))):
+                      ("plain", quat_mpc.FLEET_MODEL_SPEC._replace(expansions=None)),
+                      ("plain K9 regions", quat_mpc.FLEET_MODEL_SPEC._replace(line_search=None))):
         solve = fleet.make_fleet_solver(spec, solve_opts)
         got = _profile_tick(lambda: solve(prob), _sync_time(lambda: solve(prob), runs=5),
-                            f"B=4096 2x5 solve, expansions by {how}", (fleet.EXPANSIONS,))
+                            f"B=4096 2x5 solve, expansions by {how}", ranges)
         if step_profile is not None and got is not None:
             step_profile[f"solve_expansions_by_{how}"] = dict(
                 device_ops=got["device_ops"], device_busy_ms=got["device_busy_ms"],
-                expansions=got["split"].get(fleet.EXPANSIONS))
+                **{name: got["split"].get(name) for name in ranges})
     label, _, opts, _, _ = _latency_rows()[0]
     p50 = {"auto": latency[0][1], "sweep": latency[0][2]}
     one = examples.standing_batch(1, 10, torch.float32, device)
@@ -2072,6 +2292,7 @@ def _drive(step, carry, sp, joy, ticks, per_tick, what, sync=False, ext=None, pa
 
     rs.riccati_sweep.launches = k4.assoc_backward.launches = k4.assoc_scan.launches = 0
     k2.line_search.launches = _k8().launches = 0
+    _zero_k9()
     want = (*per_tick, sum(per_tick), sum(per_tick))
     metrics, times = [], []
     for tick in range(ticks):
@@ -2090,7 +2311,7 @@ def _drive(step, carry, sp, joy, ticks, per_tick, what, sync=False, ext=None, pa
     torch.cuda.synchronize()
     _check(k4.assoc_scan.launches == 0, f"{what}: assoc_scan launched on the solver's path")
     if path is not None:
-        _k2_count(path, k2.line_search.launches, k8=_k8().launches)
+        _k2_count(path, k2.line_search.launches, k8=_k8().launches, solves=ticks)
     per = (rs.riccati_sweep.launches / ticks, k4.assoc_backward.launches / ticks,
            k2.line_search.launches / ticks)
     return carry, metrics, times, per
@@ -2367,7 +2588,8 @@ def profile_walking_tick(step, carry, sp, joy, tick_s):
 
     return _profile_tick(lambda: step(carry, sp, joy), tick_s,
                          f"B={CLOSED_LOOP_B} walking RTI tick",
-                         (rt.PRE, rt.SOLVE, rt.POST, fleet.EXPANSIONS))
+                         (rt.PRE, rt.SOLVE, rt.POST, fleet.EXPANSIONS, fleet.OPEN_LOOP,
+                          fleet.PRICING))
 
 
 # The estimated fleet (`make_fleet_estimated_step`): the bench's noise levels
@@ -2476,6 +2698,12 @@ def _worker_walking(dtype):
     return run
 
 
+# the robots of the moved f32 walking fleet upright and within
+# test_walking.py's bounds before K9 took the open-loop rollout and the
+# pricing (PERF.md: NVIDIA H100 80GB HBM3 at 700 W)
+WALK_MOVED_BEFORE_K9 = (2069, 1122)
+
+
 def _worker_walking_moved(device):
     """Worker, a record and not a check: the f32 walking fleet of the quality
     run with each robot's start moved by 1e-6 m of seeded noise; prints how
@@ -2491,7 +2719,8 @@ def _worker_walking_moved(device):
     met = (carry.alive & (carry.plant.pos[:, 0] > 0.9) & (vel_err < 0.05) & (h_err < 0.01))
     print(f"[closed-loop] {what} (a record, not held): {int(carry.alive.sum())} of "
           f"{CLOSED_LOOP_B} upright, {int(met.sum())} within test_walking.py's bounds "
-          f"(f64 and the unmoved f32 fleet are held to them in every robot)")
+          f"(f64 and the unmoved f32 fleet are held to them in every robot); before K9 "
+          f"{WALK_MOVED_BEFORE_K9[0]} upright, {WALK_MOVED_BEFORE_K9[1]} within them")
 
 
 def _worker_ekf(device):
@@ -2954,14 +3183,16 @@ def phase_cross_term_vs_plain(device):
     return worst_f32, differ
 
 
-def _counted(fn, what, want_k1, want_k2, path=None, instantiation="quat_srb_midpoint"):
+def _counted(fn, what, want_k1, want_k2, path=None, instantiation="quat_srb_midpoint",
+             solves=None):
     """fn() with the kernels' counts set to 0 just before and read just
     after: exactly ``want_k1`` K1 and ``want_k2`` K2 launches (al x ilqr for
     a solve of a model K2 has, 0 for the bicycle's), no K4, and as many K8
-    launches as K2's (every model K2 has, K8 has); K1 at the problem's own
-    size (`riccati_sweep.embed` never called); ``path`` names the K2 and
-    K8 launches of ``instantiation`` in the kernels line. Returns (fn's result, the K1 count as
-    read)."""
+    launches as K2's (every model K2 has, K8 has), K9's rollout once a solve
+    (``solves``, where given) and its pricing al + 1 times (`_k2_count`);
+    K1 at the problem's own size (`riccati_sweep.embed` never called);
+    ``path`` names the K2, K8 and K9 launches of ``instantiation`` in the
+    kernels line. Returns (fn's result, the K1 count as read)."""
     from quaternion_mpc_tpu_torch.kernels import assoc_scan as k4
     from quaternion_mpc_tpu_torch.kernels import line_search as k2
     from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
@@ -2974,6 +3205,7 @@ def _counted(fn, what, want_k1, want_k2, path=None, instantiation="quat_srb_midp
 
     rs.riccati_sweep.launches = k4.assoc_backward.launches = k4.assoc_scan.launches = 0
     k2.line_search.launches = _k8().launches = 0
+    _zero_k9()
     rs.embed = embed
     try:
         out = fn()
@@ -2988,7 +3220,7 @@ def _counted(fn, what, want_k1, want_k2, path=None, instantiation="quat_srb_midp
     _check(not embeds, f"{what}: K1 embedded {len(embeds)} launches ({embeds[:1]}): the path's "
                        f"problem has an instantiation of its own")
     if path is not None:
-        _k2_count(path, got[3], instantiation, k8=got[4])
+        _k2_count(path, got[3], instantiation, k8=got[4], solves=solves)
     return out, got[0]
 
 
@@ -3009,7 +3241,7 @@ def _hold_fixture(name, batch, device, path=None):
         prob = al_ilqr.broadcast_problem(prob, batch)
     per_solve = opts.al_iterations * opts.ilqr_iterations
     sol, k1 = _counted(lambda: al_ilqr.make_solver(spec, opts)(prob),
-                       f"{name} fixture B={batch or 1}", per_solve, per_solve, path=path,
+                       f"{name} fixture B={batch or 1}", per_solve, per_solve, path=path, solves=1,
                        instantiation="euler_srb_euler" if name == "convex" else
                        "quat_srb_midpoint")
     us, xs = sol.us.cpu().numpy(), sol.xs.cpu().numpy()[..., : len(gold_xs), :]
@@ -3200,7 +3432,7 @@ def phase_cat_fleet(device, smi):
     solver = al_ilqr.make_solver(spec, opts)
     sol, k1_launches = _counted(lambda: solver(prob), f"falling_cat fleet B={b}", per_solve,
                                 per_solve, path="falling_cat_fleet_3x25_B4096",
-                                instantiation="attitude_midpoint")
+                                instantiation="attitude_midpoint", solves=1)
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -3217,7 +3449,8 @@ def phase_cat_fleet(device, smi):
     _, prob64, _ = examples.falling_cat_fleet(b, torch.float64, device, seed=0)
     sol64, _ = _counted(lambda: al_ilqr.make_solver(spec, opts)(prob64),
                         f"falling_cat fleet f64 B={b}", per_solve, per_solve,
-                        path="falling_cat_fleet_3x25_B4096_f64", instantiation="attitude_midpoint")
+                        path="falling_cat_fleet_3x25_B4096_f64", instantiation="attitude_midpoint",
+                        solves=1)
     away64, held64, geo64, u64, norm64, _ = _hold_cat_fleet(
         sol64, prob64, "falling_cat fleet f64", CAT_TORQUE_NEAR)
     away, held, geodesic, u_hi, norm_err, angle = _hold_cat_fleet(
@@ -3283,7 +3516,7 @@ def phase_single_counted(device):
     step, carry = scenarios.make_receding_step("falling_cat", dtype=torch.float64, device=device)
     (carry, m), tick_k1 = _counted(lambda: step(carry), "falling_cat tick", 16, 16,
                                    path="falling_cat_receding_tick_2x8",
-                                   instantiation="attitude_midpoint")
+                                   instantiation="attitude_midpoint", solves=1)
     _check(bool(torch.isfinite(carry[0]).all()), "falling_cat tick: non-finite state")
     print(f"[single] one falling_cat receding tick f64: K1 and K2 launches {tick_k1} each, att_err "
           f"{float(m['att_err']):.4f}, max torque {float(m['u_max']):.3f}")
@@ -3365,6 +3598,7 @@ def _drive_actuated(step, carry, sp, joy, ticks, what, sync=False, args=(), reco
     per_tick = (1, per_solve, 0, per_solve, per_solve)
     k7.articulated_step.launches = rs.riccati_sweep.launches = k4.assoc_backward.launches = 0
     k2.line_search.launches = _k8().launches = 0
+    _zero_k9()
     counters = (k7.articulated_step, rs.riccati_sweep, k4.assoc_backward, k2.line_search, _k8())
     metrics, times = [], []
     for tick in range(ticks):
@@ -3382,7 +3616,7 @@ def _drive_actuated(step, carry, sp, joy, ticks, what, sync=False, args=(), reco
             record(carry, m)
     torch.cuda.synchronize()
     if path is not None:
-        _k2_count(path, k2.line_search.launches, k8=_k8().launches)
+        _k2_count(path, k2.line_search.launches, k8=_k8().launches, solves=ticks)
     return carry, metrics, times, k7.articulated_step.launches, rs.riccati_sweep.launches
 
 
@@ -3755,7 +3989,8 @@ def phase_single_srb(device):
             for _ in range(SINGLE_TICKS):
                 if dev.type == "cuda":
                     (carry, m), k1 = _counted(lambda: step(carry, sp, j), f"{what} B=1", per_tick,
-                                              per_tick, path="per_scenario_srb_steps_B1")
+                                              per_tick, path="per_scenario_srb_steps_B1",
+                                              solves=1)
                     total += k1
                 else:
                     carry, m = step(carry, sp, j)
@@ -3890,13 +4125,14 @@ def _hw_setup(device, dtype):
 
 
 def _hw_counters():
-    """(K1, K7, K4's fused entry, K2, K8)."""
+    """(K1, K7, K4's fused entry, K2, K8, K9's rollout, K9's pricing)."""
     from quaternion_mpc_tpu_torch.kernels import articulated as k7
     from quaternion_mpc_tpu_torch.kernels import assoc_scan as k4
     from quaternion_mpc_tpu_torch.kernels import line_search as k2
     from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
 
-    return rs.riccati_sweep, k7.articulated_step, k4.assoc_backward, k2.line_search, _k8()
+    return (rs.riccati_sweep, k7.articulated_step, k4.assoc_backward, k2.line_search, _k8(),
+            *_k9())
 
 
 def _hw_counts():
@@ -3959,12 +4195,14 @@ def _hw_sync_flow(device, flow, record=None):
         after = _hw_counts()
         got = (mid[0] - before[0], mid[1] - before[1], after[1] - mid[1], after[0] - mid[0],
                after[2] - before[2], mid[3] - before[3], after[3] - mid[3],
-               mid[4] - before[4], after[4] - mid[4])
-        want = (al * ilqr, 0, 1, 0, 0, al * ilqr, 0, al * ilqr, 0)
+               mid[4] - before[4], after[4] - mid[4], mid[5] - before[5], mid[6] - before[6],
+               after[5] + after[6] - mid[5] - mid[6])
+        want = (al * ilqr, 0, 1, 0, 0, al * ilqr, 0, al * ilqr, 0, 1, al + 1, 0)
         _check(got == want,
                f"hardware flow tick {k}: (K1 in the tick, K7 in the tick, K7 in the peer, K1 in "
-               f"the peer, K4, K2 in the tick, K2 in the peer, K8 in the tick, K8 in the peer) "
-               f"launches {got}, expected {want}")
+               f"the peer, K4, K2 in the tick, K2 in the peer, K8 in the tick, K8 in the peer, "
+               f"K9's rollout and pricing in the tick, K9 in the peer) launches {got}, expected "
+               f"{want}")
         sensors = hw.split_sensors(obs)
         host = torch.cat([info["est_pos"], rs.torso.pos, rs.torso.vel, rs.torso.quat[:1],
                           info["in_prime"].to(dtype)[None], info["movement_mode"].to(dtype)[None]])
@@ -4143,11 +4381,8 @@ def phase_hw_graph_vs_eager(device, kept, peer_kept, tick, consts):
                     f"hardware graphed peer period {label} {when}")
     per_replay = {"tick_2x3": g_tick.per_replay, "estimator_tier": g_est.per_replay,
                   "mpc_tier_2x3": g_ctrl.per_replay, "peer_period": peer.period.per_replay}
-    _check(per_replay == {"tick_2x3": {"riccati_sweep": 6, "line_search": 6,
-                                       "knot_expansions": 6},
-                          "estimator_tier": {},
-                          "mpc_tier_2x3": {"riccati_sweep": 6, "line_search": 6,
-                                           "knot_expansions": 6},
+    _check(per_replay == {"tick_2x3": _per_replay(2, 3), "estimator_tier": {},
+                          "mpc_tier_2x3": _per_replay(2, 3),
                           "peer_period": {"articulated_step": 1}},
            f"hardware graphs: kernel launches a replay {per_replay}")
     print(f"[hardware] graphs replayed against eager calls on the walk flow's inputs ({len(kept)} "
@@ -4170,12 +4405,16 @@ def _hw_timed(run):
     return times
 
 
-def _profile_kernels(fn, what, k1, k7, k2, k8, traces=3):
+# torch.cuda._sleep kernels launched at the start of a held trace
+TRACE_MARKERS = 64
+
+
+def _profile_kernels(fn, what, k1, k7, k2, k8, k9=(0, 0), traces=3):
     """The device operations of one ``fn()`` in a torch.profiler trace:
-    their count and busy time, and how many are K1's, K7's, K2's and K8's
-    kernels, held to ``k1``, ``k7``, ``k2`` and ``k8``. A trace can lose device records and
-    never invents one, so a short count is traced again, up to ``traces``
-    times."""
+    their count and busy time, and how many are K1's, K7's, K2's, K8's and
+    K9's (rollout, pricing) kernels, held to ``k1``, ``k7``, ``k2``, ``k8``
+    and ``k9``. A trace can lose device records and never invents one, so a
+    short count is traced again, up to ``traces`` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -4184,24 +4423,34 @@ def _profile_kernels(fn, what, k1, k7, k2, k8, traces=3):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            # the trace of the eager falling_cat solve lost its first ~24 device
+            # records in every try (K9's rollout and the first K8, K1 and K2
+            # among them): marker kernels, not counted, come first
+            for _ in range(TRACE_MARKERS):
+                torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+            time.sleep(0.01)
             fn()
             torch.cuda.synchronize()
         events = prof.events()
         ranges = _ranges(events)
-        ops = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in ranges]
+        ops = [e for e in events if e.device_type == DeviceType.CUDA and e.name not in ranges
+               and "spin_kernel" not in e.name]
         got = dict(device_ops=len(ops),
                    device_busy_ms=sum(e.time_range.elapsed_us() for e in ops) / 1e3,
                    k1=sum("riccati_sweep_kernel" in e.name for e in ops),
                    k7=sum("articulated_kernel" in e.name for e in ops),
                    k2=sum("line_search_kernel" in e.name for e in ops),
-                   k8=sum("expansions_kernel" in e.name for e in ops), traces=len(seen) + 1)
-        if (got["k1"], got["k7"], got["k2"], got["k8"]) == (k1, k7, k2, k8):
+                   k8=sum("expansions_kernel" in e.name for e in ops),
+                   k9=(sum("rollout_kernel" in e.name for e in ops),
+                       sum("price_kernel" in e.name for e in ops)), traces=len(seen) + 1)
+        if (got["k1"], got["k7"], got["k2"], got["k8"], got["k9"]) == (k1, k7, k2, k8, tuple(k9)):
             return got
         seen.append(got)
-    raise AssertionError(f"{what}: K1 / K7 / K2 / K8 kernels traced "
-                         f"{[(g['k1'], g['k7'], g['k2'], g['k8']) for g in seen]} in {traces} "
-                         f"traces ({[g['device_ops'] for g in seen]} device ops), {k1} / {k7} / "
-                         f"{k2} / {k8} expected")
+    raise AssertionError(f"{what}: K1 / K7 / K2 / K8 / K9 kernels traced "
+                         f"{[(g['k1'], g['k7'], g['k2'], g['k8'], g['k9']) for g in seen]} in "
+                         f"{traces} traces ({[g['device_ops'] for g in seen]} device ops), {k1} / "
+                         f"{k7} / {k2} / {k8} / {tuple(k9)} expected")
 
 
 def _ms3(times):
@@ -4320,7 +4569,7 @@ def phase_hw_tick_timing(device, carry, tick, smi):
     finally:
         torch.cuda.set_sync_debug_mode(mode)
     _check(all(bool(torch.isfinite(c).all()) for c in outs), "hardware tick under sync debug")
-    profile = _profile_kernels(replay, "hardware tick replay", k1=3, k7=0, k2=3, k8=3)
+    profile = _profile_kernels(replay, "hardware tick replay", k1=3, k7=0, k2=3, k8=3, k9=(1, 2))
     p50, lo, hi = _ms3(times)
     ep50, elo, ehi = _ms3(eager_times)
     print(f"[hardware] warm tick f32 (two-tier, horizon 6, 1x3, B=1, with its pull), "
@@ -4363,7 +4612,7 @@ def _hw_threaded(device, what, gate, **kw):
     t0 = time.perf_counter()
     _hw_zero_counts()
     s = hw.run_hardware_loopback(device=device, **kw)
-    k1, k7, k4, k2, k8 = _hw_counts()
+    k1, k7, k4, k2, k8, k9_roll, k9_price = _hw_counts()
     wall = time.perf_counter() - t0
     warm = (hw.GRAPH_WARMUP + 4 + (4 if kw.get("async_mpc") else 0)
             + (8 if kw.get("async_pullers") else 0))
@@ -4371,16 +4620,19 @@ def _hw_threaded(device, what, gate, **kw):
     calls = warm + s["prime_ticks"] + s["mpc_ticks"] * (2 if n_walk else 1) + n_walk
     print(f"[hardware] threaded {what}: " + ", ".join(
         f"{k} {s[k]:.4g}" if isinstance(s[k], float) else f"{k} {s[k]}" for k in _HW_PRINTED)
-        + f"; K1 {k1}, K2 {k2}, K8 {k8} ({calls} tick calls), K7 {k7}; {wall:.1f} s", flush=True)
-    _check(k1 == 3 * calls and k2 == 3 * calls and k8 == 3 * calls and k4 == 0,
-           f"hardware threaded {what}: K1 {k1}, K2 {k2}, K8 {k8} for {calls} ticks")
+        + f"; K1 {k1}, K2 {k2}, K8 {k8}, K9 rollout {k9_roll} and pricing {k9_price} ({calls} "
+          f"tick calls), K7 {k7}; {wall:.1f} s", flush=True)
+    _check(k1 == 3 * calls and k2 == 3 * calls and k8 == 3 * calls and k4 == 0
+           and k9_roll == calls and k9_price == 2 * calls,
+           f"hardware threaded {what}: K1 {k1}, K2 {k2}, K8 {k8}, K9 ({k9_roll}, {k9_price}) "
+           f"for {calls} ticks of 1 x 3")
     _check(k7 == s["peer_cmds_served"] + 1 + hw.GRAPH_WARMUP,
            f"hardware threaded {what}: K7 {k7} for {s['peer_cmds_served']} peer periods")
     _check(s["peer_cmds_served"] > 0 and s["servo_states"] > 0
            and s["mpc_rate_used"] <= s["mpc_rate_requested"], f"hardware threaded {what}: mechanism")
     if gate:
         gate(s)
-    return s, k1, k7
+    return s, k1, k7, (k9_roll, k9_price)
 
 
 def _hold_bounds(what, bounds):
@@ -4460,13 +4712,13 @@ def phase_hw_threaded(device):
             ("pool stand (4 pullers)", _gate_pool,
              dict(duration_s=1.0, prime_s=0.5, async_pullers=4)),
             ("two-tier walk", _gate_walk, HW_TWO_TIER_WALK)]
-    out, k1, k7 = {}, 0, 0
+    out, k1, k7, k9 = {}, 0, 0, [0, 0]
     for what, gate, kw in runs:
-        s, n1, n7 = _hw_threaded(device, what, gate, **kw)
+        s, n1, n7, n9 = _hw_threaded(device, what, gate, **kw)
         out[what] = {k: s[k] for k in _HW_PRINTED}
-        k1, k7 = k1 + n1, k7 + n7
+        k1, k7, k9 = k1 + n1, k7 + n7, [k9[0] + n9[0], k9[1] + n9[1]]
     # K2 and K8 launch as often as K1 in every run (_hw_threaded holds each)
-    print(json.dumps({"threaded": out, "k1": k1, "k7": k7, "k2": k1, "k8": k1}))
+    print(json.dumps({"threaded": out, "k1": k1, "k7": k7, "k2": k1, "k8": k1, "k9": k9}))
 
 
 # The walks of tests/test_hardware_loop.py that it runs in fresh processes
@@ -4483,8 +4735,8 @@ HW_THREE_TIER_RUNS = 4
 
 def _worker_hw_walk(name):
     def run(device):
-        s, k1, k7 = _hw_threaded(device, f"{name} (a fresh process)", None,
-                                 **HW_FRESH_WALKS[name])
+        s, k1, k7, _ = _hw_threaded(device, f"{name} (a fresh process)", None,
+                                    **HW_FRESH_WALKS[name])
         print(json.dumps({"summary": {k: v for k, v in s.items()
                                       if isinstance(v, (bool, int, float))},
                           "k1": k1, "k7": k7}))
@@ -4661,14 +4913,16 @@ def phase_hardware(device, smi):
     per_replay = phase_hw_graph_vs_eager(device, kept, peer_kept, tick8, consts)
     timing = phase_hw_tick_timing(device, carry, tick6, smi)
     threaded = _fresh("hardware-threaded")
+    n_stand, n_walk = (sum(n for _, n in flow[3]) for flow in (HW_STAND, HW_WALK))
     _k2_count("hardware_sync_flows_1x3_2x3_B1", k1_stand[3] + k1_walk[3],
-              k8=k1_stand[4] + k1_walk[4])
-    _k2_count("hardware_threaded_loops_1x3_B1_graphed", threaded["k2"], k8=threaded["k8"])
+              k8=k1_stand[4] + k1_walk[4],
+              k9=(k1_stand[5] + k1_walk[5], k1_stand[6] + k1_walk[6]), solves=n_stand + n_walk)
+    _k2_count("hardware_threaded_loops_1x3_B1_graphed", threaded["k2"], k8=threaded["k8"],
+              k9=tuple(threaded["k9"]))
     threaded, k1_thr, k7_thr = threaded["threaded"], threaded["k1"], threaded["k7"]
     walks = phase_hw_fresh_walks()
     cli_bench = _finish_cli(_start_cli(HW_CLI_BENCH[0]), *HW_CLI_BENCH, "alone")
     print(f"[hardware] phase wall {time.perf_counter() - t0:.1f} s")
-    n_stand, n_walk = (sum(n for _, n in flow[3]) for flow in (HW_STAND, HW_WALK))
     return dict(k1_per_tick={"hardware_tick_1x3_B1": k1_stand[0] / n_stand,
                              "hardware_walk_flow_tick_2x3_B1": k1_walk[0] / n_walk},
                 k1_launches={"hardware_sync_flows_1x3_2x3_B1": k1_stand[0] + k1_walk[0],
@@ -4727,6 +4981,7 @@ def _fleet_run(step, carry, sp, joy, what, want_k1):
     from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
 
     rs.riccati_sweep.launches = k2.line_search.launches = _k8().launches = 0
+    _zero_k9()
     for k in range(FLEET_STEPS):
         before = (rs.riccati_sweep.launches, k2.line_search.launches, _k8().launches)
         carry, metrics = step(carry, sp, joy)
@@ -4736,7 +4991,7 @@ def _fleet_run(step, carry, sp, joy, what, want_k1):
                f"{what} tick {k}: (K1, K2, K8) launches {got}, expected {want_k1} each")
     torch.cuda.synchronize()
     _k2_count("run_fleet_standing_2x5_walking_2x4_B4096", k2.line_search.launches,
-              k8=_k8().launches)
+              k8=_k8().launches, solves=FLEET_STEPS)
     return carry, metrics, rs.riccati_sweep.launches
 
 
@@ -4971,10 +5226,13 @@ def _zero_counts():
         c.launches = 0
 
 
-def _per_replay(n_iter, k1="riccati_sweep", k7=0):
-    """A replay's kernel launches: al x ilqr of K1 (or K4's fused entry),
-    K2 and K8; ``k7`` of K7."""
-    want = {k1: n_iter, "line_search": n_iter, "knot_expansions": n_iter}
+def _per_replay(al, ilqr, k1="riccati_sweep", k7=0):
+    """A replay's kernel launches, one solve: al x ilqr of K1 (or K4's fused
+    entry), K2 and K8; K9's rollout once and its pricing al + 1 times;
+    ``k7`` of K7."""
+    n_iter = al * ilqr
+    want = {k1: n_iter, "line_search": n_iter, "knot_expansions": n_iter, "rollout": 1,
+            "price": al + 1}
     return {**want, "articulated_step": k7} if k7 else want
 
 
@@ -5011,12 +5269,13 @@ class _GraphRecord:
         if c["articulated_step"]:
             self.k7[path] = c["articulated_step"]
         if c["line_search"]:
-            _k2_count(path, c["line_search"], k2_instantiation, k8=c["knot_expansions"])
+            _k2_count(path, c["line_search"], k2_instantiation, k8=c["knot_expansions"],
+                      k9=(c["rollout"], c["price"]))
 
     def timed(self, path, eager, graphed, traced_k, calls=GRAPH_TIMED):
         """p50 / min / max of eager and graphed calls in turns, and a traced
-        call of each: device ops and busy ms (``traced_k``: the K1, K7, K2
-        and K8 kernels a call launches)."""
+        call of each: device ops and busy ms (``traced_k``: the K1, K7, K2,
+        K8 and K9 (rollout, pricing) kernels a call launches)."""
         e, g = _graph_turns(eager, graphed, calls)
         rec = dict(eager_ms=_ms3(e), graphed_ms=_ms3(g))
         for side, fn, p50 in (("eager", eager, rec["eager_ms"][0]),
@@ -5151,16 +5410,19 @@ def _time_solve_scenario(rec, device, rounds=3):
 # before: (argv, K1 or K4 launches a call of the graphed function, calls of
 # it the command makes: the capture's GRAPH_WARMUP warm-ups are added)
 GRAPH_CLI_STEPS = 20
+# (argv, the AL iterations and the K1 launches of a solve, the graphed calls)
 GRAPH_CLI = (
-    (["bench_solver", "--batch", "4096", "--iters", "10"], 10, 1 + 10),
+    (["bench_solver", "--batch", "4096", "--iters", "10"], 2, 10, 1 + 10),
     (["run_standing", "--batch", "4096", "--steps", str(GRAPH_CLI_STEPS), "--push", "20",
-      "--push-at", "5", "--push-ticks", "5"], 10, 2 * GRAPH_CLI_STEPS),
-    (["run_trot", "--batch", "4096", "--steps", str(GRAPH_CLI_STEPS)], 8, 2 * GRAPH_CLI_STEPS),
-    (["run_actuated", "--batch", "64", "--steps", str(GRAPH_CLI_STEPS)], 8, 2 * GRAPH_CLI_STEPS),
-    (["run_actuated", "--batch", "64", "--steps", str(GRAPH_CLI_STEPS), "--kf_type", "1"], 8,
+      "--push-at", "5", "--push-ticks", "5"], 2, 10, 2 * GRAPH_CLI_STEPS),
+    (["run_trot", "--batch", "4096", "--steps", str(GRAPH_CLI_STEPS)], 2, 8,
      2 * GRAPH_CLI_STEPS),
-    (["run_scenario", "--name", "falling_cat"], 75, 1),
-    (["run_scenario", "--name", "falling_cat", "--closed_loop", "--steps", "10"], 16, 10),
+    (["run_actuated", "--batch", "64", "--steps", str(GRAPH_CLI_STEPS)], 2, 8,
+     2 * GRAPH_CLI_STEPS),
+    (["run_actuated", "--batch", "64", "--steps", str(GRAPH_CLI_STEPS), "--kf_type", "1"], 2, 8,
+     2 * GRAPH_CLI_STEPS),
+    (["run_scenario", "--name", "falling_cat"], 3, 75, 1),
+    (["run_scenario", "--name", "falling_cat", "--closed_loop", "--steps", "10"], 2, 16, 10),
 )
 
 
@@ -5175,7 +5437,7 @@ def _graph_cli(rec):
     from quaternion_mpc_tpu_torch import cli
     from quaternion_mpc_tpu_torch.utils.graphs import GRAPH_WARMUP
 
-    for argv, per_call, calls in GRAPH_CLI:
+    for argv, al, per_call, calls in GRAPH_CLI:
         _zero_counts()
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
@@ -5183,10 +5445,13 @@ def _graph_cli(rec):
         torch.cuda.synchronize()
         c = _counts()
         k1 = c["riccati_sweep"] + c["assoc_backward"]
-        want = per_call * (calls + GRAPH_WARMUP)
-        _check(k1 == want and c["line_search"] == c["knot_expansions"] == want,
-               f"cli {' '.join(argv)}: launches {c}, expected {want} of K1, K2 and K8 "
-               f"({calls} graphed calls of {per_call} and {GRAPH_WARMUP} warm-ups)")
+        solves = calls + GRAPH_WARMUP
+        want = per_call * solves
+        _check(k1 == want and c["line_search"] == c["knot_expansions"] == want
+               and (c["rollout"], c["price"]) == (solves, (al + 1) * solves),
+               f"cli {' '.join(argv)}: launches {c}, expected {want} of K1, K2 and K8 and "
+               f"{solves} / {(al + 1) * solves} of K9's rollout / pricing ({calls} graphed "
+               f"calls of {per_call} and {GRAPH_WARMUP} warm-ups)")
         res = json.loads(out.getvalue().strip().splitlines()[-1])
         rec.cli[" ".join(argv)] = res
         print(f"[graphs] cli {' '.join(argv)} in this process: K1, K2 and K8 {want} each "
@@ -5269,20 +5534,20 @@ def phase_graphs(device, smi):
     for dtype, b in [(f32, b) for b in CONTROLLER_B] + [(f64, CONTROLLER_B[1])]:
         inputs = [examples.standing_batch(b, HORIZON, dtype, device, seed=s) for s in (0, 1)]
         g = _hold_call(rec, f"controller 2x5 {str(dtype)[6:]} B={b}", ctrl, inputs,
-                       _per_replay(10, "assoc_backward" if b == 1 else "riccati_sweep"))
+                       _per_replay(2, 5, "assoc_backward" if b == 1 else "riccati_sweep"))
         if dtype == f32 and b == CLOSED_LOOP_B:
             fleet_graph, fleet_inputs = g, inputs[0]
     rec.timed(f"controller 2x5 float32 B={CLOSED_LOOP_B}", lambda: ctrl(*fleet_inputs),
-              lambda: fleet_graph(*fleet_inputs), (10, 0, 10, 10))
+              lambda: fleet_graph(*fleet_inputs), (10, 0, 10, 10, (1, 3)))
     copts = SolverOptions(al_iterations=1, ilqr_iterations=5, max_linesearch=8)
     cctrl = convex_mpc.make_fleet_controller(HORIZON, copts)
     cin = examples.standing_batch(CLOSED_LOOP_B, HORIZON, f32, device, controller="convex")
     convex = f"convex controller 1x5 float32 B={CLOSED_LOOP_B}"
-    cg = _hold_call(rec, convex, cctrl, [cin], _per_replay(5),
+    cg = _hold_call(rec, convex, cctrl, [cin], _per_replay(1, 5),
                     k2_instantiation="euler_srb_midpoint")
     fz = cg(*cin)[0][..., 2].sum(-1).mean().item()
     rec.paths[convex]["mean_sum_fz_N"] = fz
-    rec.timed(convex, lambda: cctrl(*cin), lambda: cg(*cin), (5, 0, 5, 5))
+    rec.timed(convex, lambda: cctrl(*cin), lambda: cg(*cin), (5, 0, 5, 5, (1, 2)))
 
     # b, c. the closed loops' ticks
     sopts = SolverOptions(al_iterations=2, ilqr_iterations=5)
@@ -5292,11 +5557,11 @@ def phase_graphs(device, smi):
     push = tile(ExtWrench(f, torch.linalg.cross(
         torch.tensor([0.0, 0.0, 0.1], dtype=f32, device=device), f)), CLOSED_LOOP_B)
     _hold_chain(rec, f"standing fleet 2x5 B={CLOSED_LOOP_B}, pushed 20 N", stand,
-                carry, (sp, joy, push), GRAPH_SHORT, _per_replay(10))
+                carry, (sp, joy, push), GRAPH_SHORT, _per_replay(2, 5))
     walk = rt.make_fleet_walking_step(HORIZON, _rti_opts(), warm_start=True)
     carry, sp, joy = examples.walking_batch(CLOSED_LOOP_B, HORIZON, f32, device, velx=0.3)
     wg = _hold_chain(rec, f"walking RTI fleet 1x3 B={CLOSED_LOOP_B}", walk,
-                     carry, (sp, joy), GRAPH_TICKS, _per_replay(3))
+                     carry, (sp, joy), GRAPH_TICKS, _per_replay(1, 3))
     state = {"eager": carry, "graphed": carry}
 
     def tick(side, fn):
@@ -5305,28 +5570,28 @@ def phase_graphs(device, smi):
         return run
 
     rec.timed(f"walking RTI fleet 1x3 B={CLOSED_LOOP_B}", tick("eager", walk),
-              tick("graphed", wg), (3, 0, 3, 3))
+              tick("graphed", wg), (3, 0, 3, 3, (1, 2)))
     act = rt.make_actuated_walking_step(HORIZON, _act_opts(), n_sub=ACT_N_SUB)
     carry, sp, joy = examples.actuated_batch(ACT_B, f32, device)
     _hold_chain(rec, f"actuated fleet 2x4 B={ACT_B}", act, carry, (sp, joy), GRAPH_SHORT,
-                _per_replay(8, k7=1))
+                _per_replay(2, 4, k7=1))
     est_act = rt.make_estimated_actuated_step(HORIZON, _act_opts(), kf_type=1, n_sub=ACT_N_SUB)
     carry, sp, joy = examples.actuated_batch(ACT_B, f32, device, kf_type=1)
     _hold_chain(rec, f"estimated actuated fleet (BasicKF) 2x4 B={ACT_B}", est_act,
-                carry, (sp, joy), GRAPH_SHORT, _per_replay(8, k7=1))
+                carry, (sp, joy), GRAPH_SHORT, _per_replay(2, 4, k7=1))
     one = rt.make_actuated_walking_step(HORIZON)
     carry, sp = rt.init_actuated_scenario(
         quat_mpc.weights_from_config(_go1_cfg(), dtype=f32, device=device), dtype=f32,
         device=device)
     joy = rt.neutral_joy(f32, device)._replace(velx=torch.full((), 0.4, dtype=f32, device=device))
     _hold_chain(rec, "viz_forces actuated step, one robot", one, carry, (sp, joy), 5,
-                _per_replay(8, k7=1))
+                _per_replay(2, 4, k7=1))
     gen = torch.Generator(device=device).manual_seed(3)
     est = rt.make_fleet_estimated_step(HORIZON, _est_opts(), generator=gen, **EST_BENCH_STDS)
     carry, sp, joy = examples.estimated_batch(CLOSED_LOOP_B, HORIZON, f32, device)
     seeded = gen.get_state()
     _hold_chain(rec, f"estimated fleet 2x4 B={CLOSED_LOOP_B}, noise from a registered generator",
-                est, carry, (sp, joy), GRAPH_SHORT, _per_replay(8),
+                est, carry, (sp, joy), GRAPH_SHORT, _per_replay(2, 4),
                 generators=(gen,), reseed=lambda: gen.set_state(seeded))
 
     # d. the fleet over ranks (one here)
@@ -5342,19 +5607,20 @@ def phase_graphs(device, smi):
     spec, prob, sc_opts = scenarios.SCENARIOS["falling_cat"](dtype=f32, device=device)
     solver = al_ilqr.make_solver(spec, sc_opts)
     _no_sync_call(lambda: solver(prob), "make_solver's falling_cat solve")
-    n_sc = sc_opts.al_iterations * sc_opts.ilqr_iterations
-    _hold_call(rec, "solve_scenario falling_cat", solver, [(prob,)], _per_replay(n_sc),
+    _hold_call(rec, "solve_scenario falling_cat", solver, [(prob,)],
+               _per_replay(sc_opts.al_iterations, sc_opts.ilqr_iterations),
                k2_instantiation="attitude_midpoint")
     spec, prob, cat_opts = examples.falling_cat_fleet(CAT_FLEET_B, f32, device, seed=0)
     cat = al_ilqr.make_solver(spec, cat_opts)
     n_cat = cat_opts.al_iterations * cat_opts.ilqr_iterations
     catg = _hold_call(rec, f"falling_cat fleet 3x25 B={CAT_FLEET_B}", cat, [(prob,)],
-                      _per_replay(n_cat), k2_instantiation="attitude_midpoint")
+                      _per_replay(cat_opts.al_iterations, cat_opts.ilqr_iterations),
+                      k2_instantiation="attitude_midpoint")
     rec.timed(f"falling_cat fleet 3x25 B={CAT_FLEET_B}", lambda: cat(prob), lambda: catg(prob),
-              (n_cat, 0, n_cat, n_cat), calls=6)
+              (n_cat, 0, n_cat, n_cat, (1, cat_opts.al_iterations + 1)), calls=6)
     step, carry = scenarios.make_receding_step("falling_cat", dtype=f32, device=device)
     _hold_chain(rec, "run_closed_loop falling_cat receding tick", step, carry, (),
-                GRAPH_SHORT, _per_replay(16), k2_instantiation="attitude_midpoint")
+                GRAPH_SHORT, _per_replay(2, 8), k2_instantiation="attitude_midpoint")
 
     _time_solve_scenario(rec, device)
 
@@ -5371,7 +5637,7 @@ def phase_graphs(device, smi):
             g = Graphed(c)
             cap = g.captured(*inputs)
             _hold_graph(cap, f"{label} {backend}", _per_replay(
-                al * ilqr, "assoc_backward" if backend == "assoc" else "riccati_sweep"))
+                al, ilqr, "assoc_backward" if backend == "assoc" else "riccati_sweep"))
             _check(_elements_differ(g(*inputs), c(*inputs), label)[0] == 0,
                    f"{label} {backend}: graphed differs from eager")
             sides[backend] = lambda g=g: g(*inputs)
@@ -5440,7 +5706,8 @@ def _print_ptxas(kbuild, rs, k4, libs):
     forward Euler at one to four feet, the attitude model), nor K8's 26 (f32
     and f64: the quaternion SRB, the Euler SRB under the midpoint rule and
     forward Euler at one to four feet, the attitude model), which keep no
-    stack either but for the Euler SRB's sine and cosine (`K8_STACK`)."""
+    stack either but for the Euler SRB's sine and cosine (`K8_STACK`), nor
+    K9's 52 (its rollout and pricing at K2's 13 models, f32 and f64)."""
     for lib in libs[1:]:
         for k in kbuild.ptxas_report(lib):
             print(f"[build] ptxas {lib.name.rsplit('_', 1)[0]} {k['name'][-40:]}: {k['registers']} "
@@ -5482,6 +5749,9 @@ def _print_ptxas(kbuild, rs, k4, libs):
            and all(k["stores"] == k["loads"] == 0 and k["stack"] <= stack(k) for k in k8_report),
            f"K8 spills (f32 or f64), keeps a stack, or ptxas reported other kernels than its 26: "
            f"{k8_report}")
+    k9_report = kbuild.ptxas_report(libs[5])
+    _check(len(k9_report) == 52 and all(k["stores"] == k["loads"] == 0 for k in k9_report),
+           f"K9 spills or ptxas reported other kernels than its 52: {k9_report}")
 
 
 def main(argv) -> int:
@@ -5534,15 +5804,17 @@ def main(argv) -> int:
     from quaternion_mpc_tpu_torch.kernels import articulated as k7
     from quaternion_mpc_tpu_torch.kernels import expansions as k8
     from quaternion_mpc_tpu_torch.kernels import line_search as k2
+    from quaternion_mpc_tpu_torch.kernels import rollout as k9
 
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor() as pool:
-        libs = list(pool.map(lambda m: m.build(), (rs, k4, k7, k2, k8)))
+        libs = list(pool.map(lambda m: m.build(), (rs, k4, k7, k2, k8, k9)))
     rs._lib()
     k4._lib()
     k7._lib()
     k2._lib()
     k8._lib()
+    k9._lib()
     print(f"[build] {', '.join(str(lib.relative_to(kbuild.BUILD_DIR.parent.parent)) for lib in libs)} "
           f"in {time.perf_counter() - t0:.1f} s")
     _print_ptxas(kbuild, rs, k4, libs)
@@ -5561,6 +5833,7 @@ def main(argv) -> int:
     worst_f32_scan, worst_f32_fused = phase_scan_vs_plain(device)
     k2_worst, k2_flips, k2_checks = phase_line_search_vs_plain(device)
     k8_worst, k8_main_abs = phase_expansions_vs_plain(device)
+    k9_worst, k9_differ = phase_rollout_vs_plain(device)
     if kernels_only:
         phase_k7_kernels_only(device, baselines.get("--k7-baseline"))
         phase_small_kernel_vs_plain(device)
@@ -5572,6 +5845,7 @@ def main(argv) -> int:
         phase_scan_timing(device)
         phase_line_search_timing(device)
         phase_expansions_timing(device)
+        phase_rollout_timing(device)
         phase_k2_designs(device, baselines.get("--k2-baseline"))
         if "--k8-baseline" in baselines:
             phase_k8_designs(device, baselines["--k8-baseline"])
@@ -5586,6 +5860,7 @@ def main(argv) -> int:
     scan_times, fused_times = phase_scan_timing(device)
     line_search_times = phase_line_search_timing(device)
     expansions_times = phase_expansions_timing(device)
+    rollout_times = phase_rollout_timing(device)
     latency, k4_launches, scan_launches = phase_latency(device)               # 7
     convex_step, convex_launches = phase_convex(device)        # 8
     try:                                                          # 9
@@ -5842,7 +6117,39 @@ def main(argv) -> int:
         **(dict(convex_step_ms=convex_step * 1e3) if inst == "euler_srb_midpoint" else {}),
         **(dict(falling_cat_fleet_solve_ms=cat["p50"] * 1e3) if inst == "attitude_midpoint"
            else {}),
-    } for inst in K8_MAIN_OF)]}))
+    } for inst in K8_MAIN_OF), *({
+        "name": entry if inst == "quat_srb_midpoint" else f"{entry}[{inst}]",
+        "route": "cuda",
+        "source": "quaternion_mpc_tpu_torch/csrc/rollout.cu",
+        "replaces": K9_ENTRIES[entry],
+        "instantiation": inst,
+        "design": ("a thread a scenario, x in registers over the knots, each xs row written "
+                   "coalesced" if entry == "rollout" else
+                   "a block of 32 scenarios x 8 knot rows, each knot's cost and λ̄ a thread, the "
+                   "costs summed over the knots after a barrier")
+                  + "; PyTorch's rounding and order of summation, -fmad=false; the model a "
+                    "template argument (csrc/step_models.cuh, K2's structs)",
+        # every counted path of this process that runs this instantiation,
+        # each driven with the counts set to 0 just before and read just
+        # after: the rollout once a solve, the pricing al + 1 times
+        "launches": sum(K9_LAUNCHES.get(entry, {}).get(inst, {}).values()),
+        "launches_by_path": dict(K9_LAUNCHES.get(entry, {}).get(inst, {})),
+        "max_abs_err": k9_worst[entry].get(inst, 0.0),
+        # over phase 3's checks at B > 1: [elements that differ, of]
+        "elements_differing_at_B_gt_1": ({"xs": k9_differ["xs"]} if entry == "rollout" else
+                                         {"lam_bar": k9_differ["lam_bar"], "J": k9_differ["J"]}),
+        **{k: rollout_times[f"{K2_MAIN_OF[inst]} "
+                            f"{'rollout' if entry == 'rollout' else 'final cost'}"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "library": f"no single PyTorch call computes this {entry}",
+        "shape": f"{K2_MAIN_OF[inst]} {'rollout' if entry == 'rollout' else 'final cost'}",
+        "by_shape": {tag: t for tag, t in rollout_times.items()
+                     if (entry == "rollout") == tag.endswith("rollout")
+                     and K2_MODEL.get(tag.split(" ")[0], "quat_srb_midpoint") == inst},
+        "registers_stack_spill": {k: v for k, v in _k9_registers(kbuild, libs[5]).items()
+                                  if k.startswith(f"{entry} {inst}")},
+    } for entry in K9_ENTRIES for inst in K2_MAIN_OF)]}))
     print(f"[done] wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

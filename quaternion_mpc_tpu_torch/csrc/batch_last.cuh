@@ -1,9 +1,12 @@
 // Device helpers shared by the kernels that read batch-last inputs through a
-// table of pointers with each input's batch extent (K2, csrc/line_search.cu;
-// K8, csrc/expansions.cu): an input's view, one scenario's column of it, and
-// the 3 x 3 inverse of the models' inertia. Every input is contiguous in its
-// leading axes and has a batch axis of B or of 1 (a value every scenario
-// shares, read with batch stride 0).
+// table of pointers with each input's row and batch stride (K2,
+// csrc/line_search.cu; K8, csrc/expansions.cu; K9, csrc/rollout.cu): an
+// input's view, one scenario's column of it, and the 3 x 3 inverse of the
+// models' inertia. Element (row i of an input's leading axes flattened,
+// scenario b) lies at i·row stride + b·batch stride: a batch-last leaf has
+// row stride B (or 1) and batch stride 1 (or 0, a value every scenario
+// shares), and the batch-first model parameters (params_to_fleet's movedim)
+// row stride 1 and batch stride their row count, read in place.
 //
 // Compiles with nvcc and, against tests/cuda_emulation.h, as plain C++.
 #pragma once
@@ -12,8 +15,17 @@ namespace {
 
 constexpr double GRAVITY = 9.81;
 
-// An input: its values, and the extent of its batch axis (B, or 1 when every
-// scenario shares them).
+// An input: its values, the step between its rows and the step between
+// scenarios (0 where every scenario shares them).
+template <typename T>
+struct In {
+  const T* p;
+  long long rs, bs;
+};
+
+// A batch-last input laid out contiguous: its values, and the extent of its
+// batch axis (B, or 1 when every scenario shares them), which is also the
+// step between its rows (K2's staged inputs).
 template <typename T>
 struct View {
   const T* p;
@@ -28,6 +40,11 @@ struct Col {
   __device__ __forceinline__ T operator[](long long i) const { return p[i * ld]; }
   __device__ __forceinline__ Col at(long long row) const { return Col{p + row * ld, ld}; }
 };
+
+template <typename T>
+__device__ __forceinline__ Col<T> column(const In<T>& v, long long b) {
+  return Col<T>{v.p + b * v.bs, v.rs};
+}
 
 template <typename T>
 __device__ __forceinline__ Col<T> column(const View<T>& v, long long b) {

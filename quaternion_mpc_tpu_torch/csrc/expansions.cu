@@ -216,19 +216,6 @@ __device__ int clock_block = -1;  // the block whose warps stamp (lane 0 of each
 #define K8_STAMP(slot)
 #endif
 
-// An input: its values, the step between its rows and the step between
-// scenarios (0 where every scenario shares them).
-template <typename T>
-struct In {
-  const T* p;
-  long long rs, bs;
-};
-
-template <typename T>
-__device__ __forceinline__ Col<T> column(const In<T>& v, long long b) {
-  return Col<T>{v.p + b * v.bs, v.rs};
-}
-
 // One scenario's rows of an output slab: row i at p[i * B]. The slabs are
 // stored evict-first: they are written once and read once, by the next
 // kernel.

@@ -19,7 +19,7 @@
 // - the closed-loop rollout from x = xs_bar[0]: at knot j, δx = x ⊖ xs_bar[j]
 //   (the Cayley-chart attitude error where the state holds a quaternion, a
 //   plain difference elsewhere), u = (ū[j] + α·d[j]) + K[j]·δx, and x stepped
-//   by the model (the structs below: QuatSrbMidpoint, EulerSrb,
+//   by the model (csrc/step_models.cuh: QuatSrbMidpoint, EulerSrb,
 //   AttitudeMidpoint);
 // - its augmented-Lagrangian cost (solver/fleet.total_cost): per stage knot
 //   ½Σ Qd·dx² + ½Σ Rd·du² + w·(1 − |q·q_ref|) + (Σ λ̄² − Σ λ²)/(2ρ) with
@@ -110,33 +110,28 @@
 // A select, never a 0/1-weighted sum, takes the selected values: an
 // unselected alpha's Inf or NaN reaches no output.
 //
-// The models (each a struct: NX, NE, NU, QI, VALUES, load, step), each step
-// written in the order of the operations of its plain PyTorch model:
-// - QuatSrbMidpoint<NF> (models/srb.py quat_srb_dynamics_fleet): x = [p, q,
-//   v, ω], the quaternion at 3; the moment Σ rᵢ×fᵢ + c×(m_c·g_body), the
-//   adjugate inverse of the inertia, gravity through the frozen rotation; no
-//   gyroscopic term, the trunk mass in the CoM moment; the midpoint rule;
-// - EulerSrb<NF, FORWARD> (euler_srb_dynamics_fleet, the convex baseline):
-//   x = [rpy, p, ω_world, v_world], no quaternion; the yaw-only rpy rate,
-//   Rz(yaw)·I⁻¹·Rzᵀ from cos and sin of the yaw at every evaluation,
-//   Σ rᵢ×fᵢ and v̇ = Σf/m + g; the midpoint rule, or forward Euler
-//   (FORWARD: the golden convex fixture);
-// - AttitudeMidpoint (models/attitude.py attitude_dynamics_fleet,
-//   falling_cat): x = [q, ω], the quaternion at 0, u a body torque;
-//   q̇ = ½G(q)ω, ω̇ = I⁻¹(u − ω×Iω) with the gyroscopic term; the midpoint
-//   rule.
-// An instantiation is named by its tag (line_search_tags, in the order of
-// enum Model), which the wrapper checks against its own.
+// The models (csrc/step_models.cuh, shared with K9: each a struct of NX, NE,
+// NU, QI, VALUES, load and step, the step in the order of the operations of
+// its plain PyTorch model): QuatSrbMidpoint<NF> (the quaternion SRB),
+// EulerSrb<NF, FORWARD> (the Euler SRB of the convex baseline, by the midpoint
+// rule or forward Euler) and AttitudeMidpoint (falling_cat), each with the
+// header's `Separate` rounding: a cross product's terms as two rounded
+// products and their difference, sincos. An instantiation is named by its
+// tag (line_search_tags, in the order of enum Model), which the wrapper
+// checks against its own.
 //
-// Layout: batch-last, as the solver holds it. Every input is contiguous in
-// its leading axes and has a batch axis of B or of 1 (a value every scenario
-// shares, read with batch stride 0). The wrapper (kernels/line_search.py)
-// hands a table of input pointers and their batch extents; the order is
-// enum Input below, then the alphas, done and the trajectory scratch.
+// Layout: batch-last, as the solver holds it. The wrapper
+// (kernels/line_search.py) hands a table of input pointers and one of their
+// (row stride, batch stride) pairs, as K8 and K9 take them; the order is enum
+// Input below, then the alphas, done and the trajectory scratch. The inputs
+// the kernel stages are contiguous in their leading axes with a batch axis
+// of B or of 1 (a value every scenario shares, read with batch stride 0); the
+// batch-first model parameters (params_to_fleet's movedim) are read in place
+// through their strides (batch_last.cuh In).
 //
 // C interface (bound with ctypes): line_search_f32 / _f64 take the input
-// table, its batch extents, the output table, N, B, K, n_feet (1-4; 1 for
-// the attitude model, whose three torques are one group of three), nc and
+// table, its strides, the output table, N, B, K, n_feet (1-4; 1 for the
+// attitude model, whose three torques are one group of three), nc and
 // flags (FLAG_*, the model's index at MODEL_SHIFT), and a cudaStream_t; they
 // launch on that stream and return the CUDA error of the launch.
 // line_search_table(out) writes the tables' sizes and line_search_tags() the
@@ -166,16 +161,14 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define K2_ISFINITE(x) isfinite(x)
-#define K2_SINCOS(x, s, c) sincos(x, &(s), &(c))
 #else
 #include <cmath>
 #define K2_ISFINITE(x) std::isfinite(x)
-#define K2_SINCOS(x, s, c) ((s) = std::sin(x), (c) = std::cos(x))
 #endif
 
 #include <cstddef>
 
-#include "batch_last.cuh"
+#include "step_models.cuh"
 
 namespace {
 
@@ -189,9 +182,8 @@ enum Input {
   IN_X_REF, IN_U_REF,          // (N+1, nx), (N+1, nu)
   IN_QD, IN_QDF, IN_RD, IN_W,        // (nx), (nx), (nu), w (1) or per knot (N+1)
   IN_CU, IN_CB, IN_LAM,           // (nc, nu), cb (nc) or per knot (N+1, nc), lam (N, nc)
-  // the model's parameters (null where a model has none of them): the
-  // quaternion SRB's all six, (n_feet, 3), (3, 3), (1), (3), (1), (3, 3); the
-  // Euler SRB's feet, inertia and mass; the attitude model's inertia
+  // the model's parameters in the order of step_models.cuh enum Param (null
+  // where a model has none of them)
   IN_FOOT, IN_INERTIA, IN_MASS, IN_COM_OFFSET, IN_COM_MASS, IN_ROT,
   IN_H, IN_RHO, IN_J, IN_DV1, IN_DV2,   // each one value a scenario (h, ρ: shared or not; J
                                         // null with FLAG_PRICE)
@@ -208,10 +200,6 @@ enum Output { XS_OUT, US_OUT, J_IN_OUT, J_OUT, ACCEPTED, IMPROVED, COSTS, OUTPUT
 // us_bar; the instantiation's index (enum Model) from bit MODEL_SHIFT on
 constexpr int FLAG_W_PER_KNOT = 1, FLAG_CB_PER_KNOT = 2, FLAG_PRICE = 4, MODEL_SHIFT = 8;
 
-// The instantiations, and their tags in this order (line_search_tags).
-enum Model { QUAT_SRB_MIDPOINT, EULER_SRB_MIDPOINT, EULER_SRB_EULER, ATTITUDE_MIDPOINT, MODELS };
-constexpr const char* TAGS = "quat_srb_midpoint euler_srb_midpoint euler_srb_euler attitude_midpoint";
-
 // What shared memory holds: the values staged once a launch, the model's
 // constants, then one knot's slab (in two buffers).
 enum Slot {
@@ -220,14 +208,6 @@ enum Slot {
   SLOTS
 };
 constexpr int FIRST_KNOT_SLOT = SL_XS;
-
-// One scenario's rows of a slot in shared memory, one after the other: row
-// i at p[i], an offset the compiler folds into the load.
-template <typename T>
-struct Sm {
-  const T* p;
-  __device__ __forceinline__ T operator[](int i) const { return p[i]; }
-};
 
 // Where a launch keeps what in shared memory, in values of T: each slot's
 // offset (a knot slot's within a buffer) and the pitch between its
@@ -247,7 +227,8 @@ struct Plan {
 
 template <typename T>
 struct Args {
-  View<T> in[INPUTS];
+  View<T> in[INPUTS];  // the model's parameters' entries unused: prm
+  In<T> prm[PARAMS];   // the model's parameters, read in place through their strides
   const T* alphas;              // (K)
   const unsigned char* done;    // (B), bool
   T* scratch;                   // the trajectories where they are not in shared memory
@@ -319,7 +300,7 @@ void choose_blocks(int G, int B, int sms, int& S, int& P) {
 // nx, ne, nu, model_values: the model's state, error state, input and constants
 // (M::NX, M::NE, M::NU, M::VALUES); `sms`, the card's multiprocessors.
 template <typename T>
-Plan make_plan(const long long* ld, int N, int B, int K, int nx, int ne, int nu,
+Plan make_plan(const View<T>* in, int N, int B, int K, int nx, int ne, int nu,
                int model_values, int nc, int flags, int sms) {
   Plan p{};
   p.G = group_lanes(K);
@@ -346,7 +327,7 @@ Plan make_plan(const long long* ld, int N, int B, int K, int nx, int ne, int nu,
     }
     p.rows[slot] = rows[slot];
     p.source[slot] = source[slot];
-    const bool shared = source[slot] >= 0 && ld[source[slot]] == 1;
+    const bool shared = source[slot] >= 0 && in[source[slot]].ld == 1;
     p.pitch[slot] = shared ? 0 : rows[slot] | 1;
     p.at[slot] = at;
     at += rows[slot] == 0 ? 0 : shared ? rows[slot] : S * p.pitch[slot];
@@ -468,226 +449,6 @@ template <typename T>
 __device__ __forceinline__ T k_abs(T x) {
   return x < T(0) ? -x : x;
 }
-
-// ½·G(q)·ω, G = [[−x, −y, −z], [w, −z, y], [z, w, −x], [−y, x, w]]
-template <typename T>
-__device__ __forceinline__ void quat_rate(const T* q, const T* w, T* out) {
-  out[0] = T(0.5) * ((-q[1] * w[0] + -q[2] * w[1]) + -q[3] * w[2]);
-  out[1] = T(0.5) * ((q[0] * w[0] + -q[3] * w[1]) + q[2] * w[2]);
-  out[2] = T(0.5) * ((q[3] * w[0] + q[0] * w[1]) + -q[1] * w[2]);
-  out[3] = T(0.5) * ((-q[2] * w[0] + q[1] * w[1]) + q[0] * w[2]);
-}
-
-// The sum of the forces and the moment Σ rᵢ × fᵢ of NF feet (r: the feet,
-// 3 values each), in the plain version's order.
-template <typename T, int NF>
-__device__ __forceinline__ void force_and_moment(const T* u, const Sm<T>& r_, T* force,
-                                                 T* moment) {
-#pragma unroll
-  for (int c = 0; c < 3; ++c) force[c] = u[c];
-#pragma unroll
-  for (int f = 1; f < NF; ++f)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) force[c] = force[c] + u[3 * f + c];
-#pragma unroll
-  for (int f = 0; f < NF; ++f) {
-    const T r[3] = {r_[3 * f], r_[3 * f + 1], r_[3 * f + 2]};
-    const T* F = u + 3 * f;
-    const T t0 = r[1] * F[2] - r[2] * F[1], t1 = r[2] * F[0] - r[0] * F[2],
-            t2 = r[0] * F[1] - r[1] * F[0];
-    if (f == 0) {
-      moment[0] = t0, moment[1] = t1, moment[2] = t2;
-    } else {
-      moment[0] = moment[0] + t0, moment[1] = moment[1] + t1, moment[2] = moment[2] + t2;
-    }
-  }
-}
-
-// The quaternion SRB under the midpoint rule (models/srb.py
-// quat_srb_dynamics_fleet): x = [p 3, q 4 (w first), v 3, ω 3], body frame.
-// Its constants, by index: the feet (3·NF), the inverse inertia (9), g_body
-// (3), the CoM moment c × (m_c·g_body) (3), the mass.
-template <int NF>
-struct QuatSrbMidpoint {
-  static constexpr int NX = 13, NE = 12, NU = 3 * NF, QI = 3, VALUES = 3 * NF + 16;
-
-  template <typename T>
-  __device__ static void load(const Args<T>& a, long long b, T* m) {
-    const Col<T> foot = column(a.in[IN_FOOT], b), com = column(a.in[IN_COM_OFFSET], b),
-                 rot = column(a.in[IN_ROT], b);
-    for (int i = 0; i < 3 * NF; ++i) m[i] = foot[i];
-    T* inv = m + 3 * NF;
-    inverse3(column(a.in[IN_INERTIA], b), inv);
-    T g_body[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) g_body[c] = T(-GRAVITY) * rot[6 + c];  // Rᵀ g_world
-    const T com_mass = column(a.in[IN_COM_MASS], b)[0];
-    const T mg[3] = {com_mass * g_body[0], com_mass * g_body[1], com_mass * g_body[2]};
-    const T c0 = com[0], c1 = com[1], c2 = com[2];
-    T* rest = inv + 9;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) rest[c] = g_body[c];
-    rest[3] = c1 * mg[2] - c2 * mg[1];
-    rest[4] = c2 * mg[0] - c0 * mg[2];
-    rest[5] = c0 * mg[1] - c1 * mg[0];
-    rest[6] = column(a.in[IN_MASS], b)[0];
-  }
-
-  // x ← x + h·f(x + ½h·f(x, u), u). The forces set v̇ and ω̇ alone, so both
-  // evaluations of f share them. m: the scenario's constants.
-  template <typename T>
-  __device__ static void step(T* x, const T* u, const Sm<T>& m, T h) {
-    constexpr int INV = 3 * NF, G_BODY = INV + 9, COM = G_BODY + 3, MASS = COM + 3;
-    T force[3], moment[3];
-    force_and_moment<T, NF>(u, m, force, moment);
-    T v_dot[3], w_dot[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) moment[c] = moment[c] + m[COM + c];
-    const T mass = m[MASS];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) v_dot[c] = force[c] / mass + m[G_BODY + c];
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-      w_dot[r] = (m[INV + 3 * r] * moment[0] + m[INV + 3 * r + 1] * moment[1]) +
-                 m[INV + 3 * r + 2] * moment[2];
-
-    const T half_h = T(0.5) * h;
-    T q_dot[4], q_m[4], w_m[3], v_m[3];
-    quat_rate(x + 3, x + 10, q_dot);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) q_m[i] = x[3 + i] + half_h * q_dot[i];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      v_m[c] = x[7 + c] + half_h * v_dot[c];
-      w_m[c] = x[10 + c] + half_h * w_dot[c];
-    }
-    quat_rate(q_m, w_m, q_dot);
-#pragma unroll
-    for (int c = 0; c < 3; ++c) x[c] = x[c] + h * v_m[c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[3 + i] = x[3 + i] + h * q_dot[i];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      x[7 + c] = x[7 + c] + h * v_dot[c];
-      x[10 + c] = x[10 + c] + h * w_dot[c];
-    }
-  }
-};
-
-// The Euler SRB of the convex baseline (models/srb.py
-// euler_srb_dynamics_fleet): x = [rpy 3, p 3, ω 3, v 3], world frame, no
-// quaternion (the error state is the state); by the midpoint rule, or with
-// FORWARD by forward Euler, x ← x + h·f(x, u). Its constants: the feet
-// (3·NF), the inverse inertia (9), the mass.
-template <int NF, bool FORWARD>
-struct EulerSrb {
-  static constexpr int NX = 12, NE = 12, NU = 3 * NF, QI = -1, VALUES = 3 * NF + 10;
-
-  template <typename T>
-  __device__ static void load(const Args<T>& a, long long b, T* m) {
-    const Col<T> foot = column(a.in[IN_FOOT], b);
-    for (int i = 0; i < 3 * NF; ++i) m[i] = foot[i];
-    inverse3(column(a.in[IN_INERTIA], b), m + 3 * NF);
-    m[3 * NF + 9] = column(a.in[IN_MASS], b)[0];
-  }
-
-  // ẋ at x: the rpy rate of the yaw-only map, v, ω̇ = (Rz·I⁻¹·Rzᵀ)·moment,
-  // and v̇ (given: neither it nor the moment depends on x). Rz = [[c, −s, 0],
-  // [s, c, 0], [0, 0, 1]] at the yaw; the products by Rz's zeros and its one
-  // that the plain version's matrix products take are left out, which moves
-  // no finite value.
-  template <typename T>
-  __device__ static void rate(const T* x, const T* v_dot, const T* moment, const Sm<T>& m,
-                              T* xd) {
-    constexpr int INV = 3 * NF;
-    T c, s;
-    K2_SINCOS(x[2], s, c);  // one range reduction for both: no spill in f32 (ptxas)
-    xd[0] = c * x[6] + s * x[7];
-    xd[1] = -s * x[6] + c * x[7];
-    xd[2] = x[8];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) xd[3 + i] = x[9 + i];
-    // row by row: row r of Rz·I⁻¹, then of (Rz·I⁻¹)·Rzᵀ, then ω̇[r]
-#pragma unroll
-    for (int r = 0; r < 3; ++r) {
-      T RI[3];
-#pragma unroll
-      for (int k = 0; k < 3; ++k)
-        RI[k] = r == 0   ? c * m[INV + k] + -s * m[INV + 3 + k]
-                : r == 1 ? s * m[INV + k] + c * m[INV + 3 + k]
-                         : m[INV + 6 + k];
-      const T w0 = RI[0] * c + RI[1] * -s, w1 = RI[0] * s + RI[1] * c, w2 = RI[2];
-      xd[6 + r] = (w0 * moment[0] + w1 * moment[1]) + w2 * moment[2];
-    }
-#pragma unroll
-    for (int i = 0; i < 3; ++i) xd[9 + i] = v_dot[i];
-  }
-
-  template <typename T>
-  __device__ static void step(T* x, const T* u, const Sm<T>& m, T h) {
-    T force[3], moment[3], v_dot[3], xd[NX];
-    force_and_moment<T, NF>(u, m, force, moment);
-    const T mass = m[3 * NF + 9];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) v_dot[c] = force[c] / mass + (c == 2 ? T(-GRAVITY) : T(0));
-    rate(x, v_dot, moment, m, xd);
-    if constexpr (!FORWARD) {
-      const T half_h = T(0.5) * h;
-      T x_m[NX];
-#pragma unroll
-      for (int i = 0; i < NX; ++i) x_m[i] = x[i] + half_h * xd[i];
-      rate(x_m, v_dot, moment, m, xd);
-    }
-#pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = x[i] + h * xd[i];
-  }
-};
-template <int NF>
-using EulerSrbMidpoint = EulerSrb<NF, false>;
-template <int NF>
-using EulerSrbEuler = EulerSrb<NF, true>;
-
-// The attitude model of falling_cat under the midpoint rule
-// (models/attitude.py attitude_dynamics_fleet): x = [q 4 (w first), ω 3], u
-// a body torque. Its constants: the inertia (9), its inverse (9).
-struct AttitudeMidpoint {
-  static constexpr int NX = 7, NE = 6, NU = 3, QI = 0, VALUES = 18;
-
-  template <typename T>
-  __device__ static void load(const Args<T>& a, long long b, T* m) {
-    const Col<T> inertia = column(a.in[IN_INERTIA], b);
-    for (int i = 0; i < 9; ++i) m[i] = inertia[i];
-    inverse3(inertia, m + 9);
-  }
-
-  // ẋ = [½G(q)ω, I⁻¹(u − ω × Iω)]
-  template <typename T>
-  __device__ static void rate(const T* x, const T* u, const Sm<T>& m, T* xd) {
-    quat_rate(x, x + 4, xd);
-    const T* w = x + 4;
-    T Iw[3];
-#pragma unroll
-    for (int r = 0; r < 3; ++r) Iw[r] = (m[3 * r] * w[0] + m[3 * r + 1] * w[1]) + m[3 * r + 2] * w[2];
-    const T moment[3] = {u[0] - (w[1] * Iw[2] - w[2] * Iw[1]), u[1] - (w[2] * Iw[0] - w[0] * Iw[2]),
-                         u[2] - (w[0] * Iw[1] - w[1] * Iw[0])};
-#pragma unroll
-    for (int r = 0; r < 3; ++r)
-      xd[4 + r] = (m[9 + 3 * r] * moment[0] + m[9 + 3 * r + 1] * moment[1]) +
-                  m[9 + 3 * r + 2] * moment[2];
-  }
-
-  template <typename T>
-  __device__ static void step(T* x, const T* u, const Sm<T>& m, T h) {
-    T xd[NX], x_m[NX];
-    rate(x, u, m, xd);
-    const T half_h = T(0.5) * h;
-#pragma unroll
-    for (int i = 0; i < NX; ++i) x_m[i] = x[i] + half_h * xd[i];
-    rate(x_m, u, m, xd);
-#pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = x[i] + h * xd[i];
-  }
-};
 
 // δx = x ⊖ x_bar: a plain difference, and where the state holds a quaternion
 // (at M::QI) its Cayley coordinates of q_bar⁻¹ ⊗ q in its place.
@@ -896,7 +657,7 @@ __global__ void __launch_bounds__(MAX_THREADS) line_search_kernel(const Args<T> 
   cp_async_commit();
   stage_knot(0);
   cp_async_commit();
-  if (in_range && q == 0) M::load(a, b, sm + p.at[SL_MODEL] + s * p.pitch[SL_MODEL]);
+  if (in_range && q == 0) M::load(a.prm, b, sm + p.at[SL_MODEL] + s * p.pitch[SL_MODEL]);
   stamp();
 
   const T h = column(a.in[IN_H], b)[0], rho = column(a.in[IN_RHO], b)[0];
@@ -1086,10 +847,17 @@ __global__ void __launch_bounds__(MAX_THREADS) line_search_kernel(const Args<T> 
 // The kernel's arguments from the wrapper's tables, with the launch's plan
 // for model M.
 template <typename T, typename M>
-Args<T> make_args(const void* const* in, const long long* ld, void* const* out, int N, int B,
+Args<T> make_args(const void* const* in, const long long* st, void* const* out, int N, int B,
                   int K, int nc, int flags, int sms) {
   Args<T> a;
-  for (int i = 0; i < INPUTS; ++i) a.in[i] = View<T>{static_cast<const T*>(in[i]), ld[i]};
+  // a staged input is batch-last and contiguous (the wrapper lays it out
+  // so): batch stride 1 and batch extent B, or 0 where every scenario shares
+  // it (extent 1)
+  for (int i = 0; i < INPUTS; ++i)
+    a.in[i] = View<T>{static_cast<const T*>(in[i]), st[2 * i + 1] == 0 ? 1 : B};
+  for (int i = 0; i < PARAMS; ++i)
+    a.prm[i] = In<T>{static_cast<const T*>(in[IN_FOOT + i]), st[2 * (IN_FOOT + i)],
+                     st[2 * (IN_FOOT + i) + 1]};
   a.alphas = static_cast<const T*>(in[IN_ALPHAS]);
   a.done = static_cast<const unsigned char*>(in[IN_DONE]);
   a.scratch = static_cast<T*>(const_cast<void*>(in[IN_SCRATCH]));
@@ -1101,40 +869,20 @@ Args<T> make_args(const void* const* in, const long long* ld, void* const* out, 
   a.improved = static_cast<unsigned char*>(out[IMPROVED]);
   a.costs = static_cast<T*>(out[COSTS]);
   a.N = N, a.B = B, a.K = K, a.nc = nc, a.flags = flags;
-  a.plan = make_plan<T>(ld, N, B, K, M::NX, M::NE, M::NU, M::VALUES, nc, flags, sms);
+  a.plan = make_plan<T>(a.in, N, B, K, M::NX, M::NE, M::NU, M::VALUES, nc, flags, sms);
   return a;
-}
-
-template <template <int> class Family, typename Fn>
-int with_feet(int n_feet, Fn& fn) {
-  switch (n_feet) {
-    case 1: return fn.template run<Family<1>>();
-    case 2: return fn.template run<Family<2>>();
-    case 3: return fn.template run<Family<3>>();
-    case 4: return fn.template run<Family<4>>();
-  }
-  return -1;
-}
-
-// fn.template run<M>() with M the model of instantiation `model` (enum Model)
-// at n_feet feet (1 for the attitude model); -1 where there is none.
-template <typename Fn>
-int with_model(int model, int n_feet, Fn& fn) {
-  switch (model) {
-    case QUAT_SRB_MIDPOINT: return with_feet<QuatSrbMidpoint>(n_feet, fn);
-    case EULER_SRB_MIDPOINT: return with_feet<EulerSrbMidpoint>(n_feet, fn);
-    case EULER_SRB_EULER: return with_feet<EulerSrbEuler>(n_feet, fn);
-    case ATTITUDE_MIDPOINT: return n_feet == 1 ? fn.template run<AttitudeMidpoint>() : -1;
-  }
-  return -1;
 }
 
 }  // namespace
 
-// The table's sizes, so that the wrapper checks its order against the one compiled.
+// The table's sizes, so that the wrapper checks its order against the one
+// compiled, and the values an input has in the second table: 2, its row and
+// batch stride (a source before them wrote no third value: there it was 1,
+// the input's batch extent).
 extern "C" void line_search_table(int* out) {
   out[0] = INPUTS;
   out[1] = OUTPUTS;
+  out[2] = 2;
 }
 
 // The instantiations' tags, space-separated, in the order of their indices
@@ -1178,14 +926,14 @@ int launch_lanes(const Args<T>& a, void* stream) {
 template <typename T>
 struct Launch {
   const void* const* in;
-  const long long* ld;
+  const long long* st;
   void* const* out;
   int N, B, K, nc, flags;
   void* stream;
 
   template <typename M>
   int run() {
-    const Args<T> a = make_args<T, M>(in, ld, out, N, B, K, nc, flags, multiprocessors());
+    const Args<T> a = make_args<T, M>(in, st, out, N, B, K, nc, flags, multiprocessors());
     if (a.plan.bytes > SMEM_LIMIT || (a.plan.traj_at < 0 && a.scratch == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
     return a.plan.P == 2 ? launch_lanes<T, M, 2>(a, stream) : launch_lanes<T, M, 1>(a, stream);
@@ -1193,27 +941,27 @@ struct Launch {
 };
 
 template <typename T>
-int launch(const void* const* in, const long long* ld, void* const* out, int N, int B, int K,
+int launch(const void* const* in, const long long* st, void* const* out, int N, int B, int K,
            int n_feet, int nc, int flags, void* stream) {
   if (N < 1 || B < 1 || K < 1 || K > 32 || nc < 0 || n_feet < 1 || n_feet > 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  Launch<T> fn{in, ld, out, N, B, K, nc, flags, stream};
-  const int err = with_model(flags >> MODEL_SHIFT, n_feet, fn);
+  Launch<T> fn{in, st, out, N, B, K, nc, flags, stream};
+  const int err = with_model<Separate>(flags >> MODEL_SHIFT, n_feet, fn);
   return err < 0 ? static_cast<int>(cudaErrorInvalidValue) : err;
 }
 
 }  // namespace
 
-extern "C" int line_search_f32(const void* const* in, const long long* ld, void* const* out,
+extern "C" int line_search_f32(const void* const* in, const long long* st, void* const* out,
                                int N, int B, int K, int n_feet, int nc, int flags,
                                void* stream) {
-  return launch<float>(in, ld, out, N, B, K, n_feet, nc, flags, stream);
+  return launch<float>(in, st, out, N, B, K, n_feet, nc, flags, stream);
 }
 
-extern "C" int line_search_f64(const void* const* in, const long long* ld, void* const* out,
+extern "C" int line_search_f64(const void* const* in, const long long* st, void* const* out,
                                int N, int B, int K, int n_feet, int nc, int flags,
                                void* stream) {
-  return launch<double>(in, ld, out, N, B, K, n_feet, nc, flags, stream);
+  return launch<double>(in, st, out, N, B, K, n_feet, nc, flags, stream);
 }
 
 #ifdef K2_PLAN_OVERRIDE

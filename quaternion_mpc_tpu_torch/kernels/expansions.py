@@ -158,43 +158,6 @@ def bind(path) -> ctypes.CDLL:
     return lib
 
 
-def _strides(t):
-    """(row stride, batch stride) of ``t`` (leading axes, then a batch axis)
-    as the kernel reads it: element (row i of the leading axes flattened,
-    scenario b) at i·row stride + b·batch stride; the batch stride 0 where the
-    batch axis is 1. None where the leading axes do not step through memory
-    evenly (the kernel then reads a contiguous copy). An absent or empty
-    ``t`` (a parameter the model has not, no inequality rows) is never
-    read."""
-    if t is None or t.numel() == 0:
-        return 1, 0
-    extent, lead = t.shape[-1], list(zip(t.shape[:-1], t.stride()[:-1]))
-    row, inner = None, 1
-    for size, stride in reversed(lead):
-        if size == 1:
-            continue
-        if row is None:
-            row = stride
-        if stride <= 0 or stride != row * inner:
-            return None
-        inner *= size
-    return (1 if row is None else row), (t.stride(-1) if extent > 1 else 0)
-
-
-def _view(t, B, name, like):
-    """`line_search._layout` without its copy: ``t`` of the right shape as
-    the kernel reads it, in place wherever `_strides` can describe it (a
-    batch axis of B broadcast with stride 0 is cut to 1), else contiguous;
-    with its batch extent."""
-    if t.dtype != like[0] or t.device != like[1]:
-        raise ValueError(f"{name} is {t.dtype} on {t.device}; xs is {like[0]} on {like[1]}")
-    if t.shape[-1] == B and B > 1 and t.stride(-1) == 0:
-        t = t[..., :1]
-    if _strides(t) is None:
-        t = t.contiguous()
-    return t, t.shape[-1]
-
-
 def _model(flags):
     """(instantiation, nx, ne, quaternion index) of a launch's flags."""
     name = INSTANTIATIONS[flags >> _MODEL_SHIFT]
@@ -264,7 +227,7 @@ def check_inputs(spec, prob, xs, us, lam, rho):
         (prob.h, S, None, "h"),
         (rho, S, None, "rho"),
     ]
-    table = _k2.input_table(operands, B, (xs.dtype, xs.device), _view)
+    table = _k2.input_table(operands, B, (xs.dtype, xs.device), _k2.view)
     flags = ((_W_PER_KNOT if w_per_knot else 0) | (_CB_PER_KNOT if cb_per_knot else 0)
              | INSTANTIATIONS.index(name) << _MODEL_SHIFT)
     return table, (N, B, n_feet, nc, flags)
@@ -367,9 +330,9 @@ _OUT_TABLE = ctypes.c_void_p * OUTPUTS
 def c_tables(table, outputs):
     """The C interface's three tables: the input pointers (null for a
     parameter the model has not), each input's (row stride, batch stride)
-    (`_strides`) and the output pointers."""
+    (`line_search.strides`) and the output pointers."""
     return (_IN_TABLE(*[None if t is None else t.data_ptr() for t, _ in table]),
-            _STRIDE_TABLE(*[s for t, _ in table for s in _strides(t)]),
+            _STRIDE_TABLE(*[s for t, _ in table for s in _k2.strides(t)]),
             _OUT_TABLE(*[t.data_ptr() for t in outputs]))
 
 

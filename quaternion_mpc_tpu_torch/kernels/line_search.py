@@ -32,6 +32,12 @@ instantiation (`INSTANTIATIONS`, `instantiation`). Every other spec runs the
 plain version. A tagged problem the kernel does not take (state rows Cx,
 more than four feet, more than 32 alphas) raises on the card.
 
+The wrapper hands each input's row and batch stride (`strides`), as K8 and
+K9 take them: the batch-first model parameters (`models.srb.params_to_fleet`'s
+`movedim`) are read in place, not copied; the inputs the kernel stages are
+laid out contiguous (`_layout`). The models' steps are K9's
+(csrc/step_models.cuh).
+
 Source `csrc/line_search.cu`, compiled at first use with nvcc into `build/`
 (`kernels.build`, keyed by a hash of source and flags) and bound with
 ctypes. `line_search` takes the plain version `line_search_ref` for tensors
@@ -103,17 +109,21 @@ def bind(path) -> ctypes.CDLL:
     tables' sizes checked against the wrapper's and its instantiations' tags
     against `INSTANTIATIONS` (a source without `line_search_tags`, the
     quaternion SRB's kernel before the others, has the first alone); they
-    are kept as ``lib.instantiations``."""
+    are kept as ``lib.instantiations``. ``lib.strided``: whether it reads
+    its inputs through (row stride, batch stride) pairs; a source before
+    them takes each input's batch extent, its inputs contiguous (`launch`
+    lays them out so for it)."""
     lib = ctypes.CDLL(str(path))
     for name in _ENTRY.values():
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    table = (ctypes.c_int * 2)()
+    table = (ctypes.c_int * 3)(0, 0, 1)  # a source before the strides writes two
     lib.line_search_table(table)
-    if tuple(table) != (INPUTS, OUTPUTS):
-        raise RuntimeError(f"{path} takes {tuple(table)} inputs and outputs, the "
-                           f"wrapper {(INPUTS, OUTPUTS)}")
+    if tuple(table[:2]) != (INPUTS, OUTPUTS) or table[2] not in (1, 2):
+        raise RuntimeError(f"{path} takes {tuple(table)} inputs, outputs and values an input, "
+                           f"the wrapper {(INPUTS, OUTPUTS, 2)}")
+    lib.strided = table[2] == 2
     tags = INSTANTIATIONS[:1]
     if hasattr(lib, "line_search_tags"):
         lib.line_search_tags.restype = ctypes.c_char_p
@@ -201,13 +211,13 @@ def _operand(t, lead, B, name, like, layout=None):
     value every scenario shares; an axis of B broadcast with stride 0 is cut
     to 1), with the batch extent. Raises on another shape, type or device.
     ``like``: (dtype, device) every operand shares; ``layout``: how a
-    tensor of the right shape is laid out for the kernel (`_layout`)."""
+    tensor of the right shape is laid out for the kernel (`view`)."""
     shape = t.shape if isinstance(t, torch.Tensor) else None
     if shape is None or len(shape) != len(lead) + 1 or shape[-1] not in (1, B) \
             or shape[:-1] != lead:
         shape = tuple(shape) if shape is not None else type(t).__name__
         raise ValueError(f"{name} must have shape {tuple(lead)} + (B|1,) with B = {B}, got {shape}")
-    return (layout or _layout)(t, B, name, like)
+    return (layout or view)(t, B, name, like)
 
 
 def _exact(t, shape, name, like, layout=None):
@@ -215,13 +225,13 @@ def _exact(t, shape, name, like, layout=None):
     if not isinstance(t, torch.Tensor) or t.shape != shape:
         got = tuple(t.shape) if isinstance(t, torch.Tensor) else type(t).__name__
         raise ValueError(f"{name} must have shape {tuple(shape)}, got {got}")
-    return (layout or _layout)(t, shape[-1], name, like)
+    return (layout or view)(t, shape[-1], name, like)
 
 
 def _scalar(t, B, name, like, layout=None):
     """A value a scenario (h, mass, ρ, ...): one shared value of any shape, or
     B values."""
-    layout = layout or _layout
+    layout = layout or view
     if isinstance(t, torch.Tensor):
         n = t.numel()
         if n == 1:
@@ -234,7 +244,8 @@ def _scalar(t, B, name, like, layout=None):
 
 def _layout(t, B, name, like):
     """The type and device checks and the batch extent of an operand whose
-    shape is right."""
+    shape is right, laid out contiguous (for a build that takes batch
+    extents, not strides: `bind`)."""
     if t.dtype != like[0] or t.device != like[1]:
         raise ValueError(f"{name} is {t.dtype} on {t.device}; xs is {like[0]} on {like[1]}")
     if t.is_contiguous():  # a batch axis of B > 1 broadcast with stride 0 is not
@@ -242,6 +253,43 @@ def _layout(t, B, name, like):
     if t.shape[-1] == B and B > 1 and t.stride(-1) == 0:
         t = t[..., :1]
     return t.contiguous(), t.shape[-1]
+
+
+def strides(t):
+    """(row stride, batch stride) of ``t`` (leading axes, then a batch axis)
+    as a kernel reads it: element (row i of the leading axes flattened,
+    scenario b) at i·row stride + b·batch stride; the batch stride 0 where the
+    batch axis is 1. None where the leading axes do not step through memory
+    evenly (the kernel then reads a contiguous copy). An absent or empty
+    ``t`` (a parameter the model has not, no inequality rows) is never
+    read."""
+    if t is None or t.numel() == 0:
+        return 1, 0
+    extent, lead = t.shape[-1], list(zip(t.shape[:-1], t.stride()[:-1]))
+    row, inner = None, 1
+    for size, stride in reversed(lead):
+        if size == 1:
+            continue
+        if row is None:
+            row = stride
+        if stride <= 0 or stride != row * inner:
+            return None
+        inner *= size
+    return (1 if row is None else row), (t.stride(-1) if extent > 1 else 0)
+
+
+def view(t, B, name, like):
+    """`_layout` without its copy: ``t`` of the right shape as a kernel that
+    reads strides takes it, in place wherever `strides` can describe it (a
+    batch axis of B broadcast with stride 0 is cut to 1), else contiguous;
+    with its batch extent."""
+    if t.dtype != like[0] or t.device != like[1]:
+        raise ValueError(f"{name} is {t.dtype} on {t.device}; xs is {like[0]} on {like[1]}")
+    if t.shape[-1] == B and B > 1 and t.stride(-1) == 0:
+        t = t[..., :1]
+    if strides(t) is None:
+        t = t.contiguous()
+    return t, t.shape[-1]
 
 
 # How check_inputs takes each operand: its whole shape with the batch axis
@@ -271,8 +319,8 @@ def input_table(operands, B, like, layout=None):
     this launch; its shape; its name): (tensor as the kernel reads it, batch
     extent) pairs, (None, 1) for an absent operand. Raises ValueError on an
     operand of another shape, type or device than ``like`` = (dtype,
-    device). ``layout`` lays a tensor out for the kernel (default `_layout`:
-    contiguous)."""
+    device). ``layout`` lays a tensor out for the kernel (default `view`: in
+    place where strides describe it)."""
     table = []
     for t, kind, shape, name in operands:
         if kind is None:
@@ -286,13 +334,17 @@ def input_table(operands, B, like, layout=None):
     return table
 
 
-def check_inputs(spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas):
+def check_inputs(spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas,
+                 strided=True):
     """Raise ValueError on a problem the kernel does not take; returns the
     kernel's input table (INPUTS (tensor, batch extent) pairs in the order of
-    csrc/line_search.cu enum Input; J None, to be priced, and the parameters
-    a model does not have are (None, 1)), then alphas and done, and (N, B, K,
-    n_feet, nc, flags), the flags holding the instantiation's index. n_feet
-    is 1 for the attitude model (its three torques)."""
+    csrc/line_search.cu enum Input: the model's parameters read in place
+    where their strides allow (with ``strided`` False, for a build before
+    the strides, contiguous), every other input contiguous; J None, to be
+    priced, and the parameters a model does not have are (None, 1)), then
+    alphas and done, and (N, B, K, n_feet, nc, flags), the flags holding the
+    instantiation's index. n_feet is 1 for the attitude model (its three
+    torques)."""
     tag = spec.line_search
     if tag not in MODELS:
         raise ValueError(f"K2 runs the specs tagged {tuple(MODELS)}, not {tag!r}")
@@ -355,7 +407,13 @@ def check_inputs(spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas
         (dV1, _EXACT, (B,), "dV1"),
         (dV2, _EXACT, (B,), "dV2"),
     ]
-    table = input_table(operands, B, like)
+    # the staged inputs contiguous, the model's parameters in place where the
+    # build reads strides
+    first = len(operands) - 5 - len(_PARAM_SHAPES)
+    last = first + len(_PARAM_SHAPES)
+    table = (input_table(operands[:first], B, like, _layout)
+             + input_table(operands[first:last], B, like, view if strided else _layout)
+             + input_table(operands[last:], B, like, _layout))
     if tuple(done.shape) != (B,) or done.dtype != torch.bool or done.device != xs.device:
         raise ValueError(f"done must be ({B},) bool on {xs.device}, got {tuple(done.shape)} "
                          f"{done.dtype} on {done.device}")
@@ -395,20 +453,20 @@ def new_outputs(dims, like, with_costs):
 
 
 _IN_TABLE = ctypes.c_void_p * (INPUTS + 3)
-_LD_TABLE = ctypes.c_longlong * INPUTS
 _OUT_TABLE = ctypes.c_void_p * OUTPUTS
 
 
-def c_tables(table, extras, outputs):
+def c_tables(table, extras, outputs, strided=True):
     """The C interface's three tables: the input pointers (the table's, then
-    the alphas', done's and the scratch's), the inputs' batch extents and the
-    output pointers (null for costs not asked for)."""
-    pointers, extents = [], []
-    for t, ld in table:
-        pointers.append(None if t is None else t.data_ptr())
-        extents.append(ld)
+    the alphas', done's and the scratch's), each input's (row stride, batch
+    stride) (`strides`; with ``strided`` False its batch extent, for a build
+    before the strides) and the output pointers (null for costs not asked
+    for)."""
+    pointers = [None if t is None else t.data_ptr() for t, _ in table]
     pointers.extend(t.data_ptr() for t in extras)
-    return (_IN_TABLE(*pointers), _LD_TABLE(*extents),
+    second = ([s for t, _ in table for s in strides(t)] if strided
+              else [extent for _, extent in table])
+    return (_IN_TABLE(*pointers), (ctypes.c_longlong * len(second))(*second),
             _OUT_TABLE(*[None if t is None else t.data_ptr() for t in outputs]))
 
 
@@ -436,13 +494,13 @@ def launch(lib, spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas,
     """One launch of the kernel in ``lib`` (`bind`) on the current stream,
     uncounted: (xs, us, J, J_out, accepted, improved, costs or None)."""
     table, (alphas, done), dims = check_inputs(
-        spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas)
+        spec, prob, xs, us, Ks, ds, dV1, dV2, J, done, lam, rho, alphas, lib.strided)
     N, B, K, n_feet, nc, flags = dims
     name = INSTANTIATIONS[flags >> _MODEL_SHIFT]
     if name not in lib.instantiations:
         raise ValueError(f"this build of K2 has {lib.instantiations}, not {name!r}")
     outputs, scratch = new_outputs(dims, xs, with_costs)
-    tables = c_tables(table, (alphas, done, scratch), outputs)
+    tables = c_tables(table, (alphas, done, scratch), outputs, lib.strided)
     fn = getattr(lib, _ENTRY[xs.dtype])
     if xs.device.index == torch.cuda.current_device():
         err = fn(*tables, N, B, K, n_feet, nc, flags, torch.cuda.current_stream().cuda_stream)

@@ -27,7 +27,11 @@ the K4 CUDA kernel `kernels.assoc_scan`). The line search (`line_search`:
 the rollouts over every alpha, their AL costs, the Armijo test and the
 select) is the K2 CUDA kernel `kernels.line_search` for a spec tagged with
 a model K2 has an instantiation of (``line_search`` "quat_srb", "euler_srb"
-or "attitude") and plain PyTorch for every other.
+or "attitude") and plain PyTorch for every other. For such a spec, on a
+problem without state rows Cx, the solve's open-loop rollout, its
+multiplier updates and its final cost are the K9 CUDA kernel
+`kernels.rollout` (its `rollout` and `price` entries); plain PyTorch
+(`open_loop_rollout`, `constraint_values`, `total_cost`) for every other.
 Everything else is plain PyTorch.
 """
 
@@ -42,6 +46,7 @@ from torch.profiler import record_function
 from quaternion_mpc_tpu_torch.kernels import expansions as _k8
 from quaternion_mpc_tpu_torch.kernels import line_search as _k2
 from quaternion_mpc_tpu_torch.kernels import riccati_sweep as _k1
+from quaternion_mpc_tpu_torch.kernels import rollout as _k9
 from quaternion_mpc_tpu_torch.models.discretize import (
     error_projection_bl as _error_proj_bl,
     fleet_discrete_jac as _fleet_discrete_jac,
@@ -51,8 +56,12 @@ from quaternion_mpc_tpu_torch.models.discretize import (
 from quaternion_mpc_tpu_torch.models.srb import _eye, _quat_G_bl
 from quaternion_mpc_tpu_torch.solver.problem import SolverOptions
 
-# The profiler range around a backward pass's expansions.
+# The profiler ranges around a backward pass's expansions, around a solve's
+# open-loop rollout, and around each pricing of a solve's trajectory (the
+# multiplier update after an AL iteration, the final cost).
 EXPANSIONS = "expansions"
+OPEN_LOOP = "open_loop_rollout"
+PRICING = "pricing"
 
 # ---------------------------------------------------------------------------
 # Batch-last tiny linear algebra (broadcast-multiply + sum, full precision)
@@ -622,9 +631,13 @@ def make_fleet_solver(
         B = prob.x0.shape[-1]
         N = prob.us_init.shape[0]
         nc = prob.cb.shape[-2]
+        # K9 where K2 runs, on a problem without state rows (its wrapper runs
+        # the plain versions on the CPU)
+        fused = spec.line_search is not None and prob.Cx is None
 
         us = prob.us_init
-        xs = open_loop_rollout(spec, prob, us)
+        with record_function(OPEN_LOOP):
+            xs = _k9.rollout(spec, prob, us) if fused else open_loop_rollout(spec, prob, us)
         # one multiplier row a stage knot, and with state rows a terminal one
         n_lam = N + 1 if prob.Cx is not None else N
         if prob.lam_init is None:
@@ -655,18 +668,26 @@ def make_fleet_solver(
                     prob, xs, us, lam, rho, reg, J, done, alphas
                 )
                 n_total += 1
-            lam_stage = torch.clamp(lam[:N] + rho * constraint_values(prob, xs, us), min=0.0)
-            if prob.Cx is None:
-                lam = lam_stage
-            else:
-                lam_N = lam[N] + rho * terminal_constraint_values(prob, xs[-1])
-                lam = torch.cat([lam_stage, torch.clamp(lam_N, min=0.0)[None]])
+            with record_function(PRICING):
+                if fused:
+                    lam = _k9.price(spec, prob, xs, us, lam, rho, cost=False, lam_bar=True)[1]
+                else:
+                    lam_stage = torch.clamp(lam[:N] + rho * constraint_values(prob, xs, us),
+                                            min=0.0)
+                    if prob.Cx is None:
+                        lam = lam_stage
+                    else:
+                        lam_N = lam[N] + rho * terminal_constraint_values(prob, xs[-1])
+                        lam = torch.cat([lam_stage, torch.clamp(lam_N, min=0.0)[None]])
             rho = rho * opts.penalty_scaling
 
-        final_cost = total_cost(
-            spec, xs, us, prob, torch.zeros_like(lam),
-            torch.full((), 1e-30, dtype=dtype, device=device),
-        )
+        # the final cost: zero multipliers at a vanishing penalty
+        rho_final = torch.full((), 1e-30, dtype=dtype, device=device)
+        with record_function(PRICING):
+            if fused:
+                final_cost = _k9.price(spec, prob, xs, us, None, rho_final)[0]
+            else:
+                final_cost = total_cost(spec, xs, us, prob, torch.zeros_like(lam), rho_final)
         if not stats:
             return FleetSolution(xs=xs, us=us, cost=final_cost, iterations=n_total, lam=lam)
         if nc > 0:

@@ -58,10 +58,11 @@ _TENSOR = "<tensor>"  # a tensor's place in a structure (`_flatten`)
 def launch_counters():
     """The kernel wrappers, each with its ``launches`` count."""
     from quaternion_mpc_tpu_torch.kernels import (articulated, assoc_scan, expansions,
-                                                  line_search, riccati_sweep)
+                                                  line_search, riccati_sweep, rollout)
 
     return (riccati_sweep.riccati_sweep, assoc_scan.assoc_scan, assoc_scan.assoc_backward,
-            articulated.articulated_step, line_search.line_search, expansions.knot_expansions)
+            articulated.articulated_step, line_search.line_search, expansions.knot_expansions,
+            rollout.rollout, rollout.price)
 
 
 def _flatten(tree, leaves: list):

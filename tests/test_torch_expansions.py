@@ -52,6 +52,7 @@ from quaternion_mpc_tpu_torch import scenarios as tsc
 from quaternion_mpc_tpu_torch.control import convex_mpc as tcv
 from quaternion_mpc_tpu_torch.control import quat_mpc as tq
 from quaternion_mpc_tpu_torch.kernels import expansions as k8
+from quaternion_mpc_tpu_torch.kernels import line_search as k2
 from quaternion_mpc_tpu_torch.models import attitude as tattitude
 from quaternion_mpc_tpu_torch.models import classic as tclassic
 from quaternion_mpc_tpu_torch.models import srb as tsrb
@@ -494,10 +495,10 @@ def test_input_table_reads_the_parameters_in_place():
         assert not given.is_contiguous()
         t, extent = inputs[field]
         assert t.data_ptr() == given.data_ptr() and extent == 5, field
-        assert k8._strides(t) == (1, rows), field
-    assert k8._strides(inputs["xs"][0]) == (5, 1) and inputs["xs"][0].data_ptr() == xs.data_ptr()
+        assert k2.strides(t) == (1, rows), field
+    assert k2.strides(inputs["xs"][0]) == (5, 1) and inputs["xs"][0].data_ptr() == xs.data_ptr()
     t, extent = inputs["inertia"]  # broadcast along B with stride 0
-    assert extent == 1 and k8._strides(t) == (1, 0) and t.data_ptr() == p.inertia.data_ptr()
+    assert extent == 1 and k2.strides(t) == (1, 0) and t.data_ptr() == p.inertia.data_ptr()
     _, strides, _ = k8.c_tables(table, k8.new_outputs(k8.check_inputs(
         spec, prob, xs, us, lam, rho)[1], xs))
     assert list(strides)[2 * 11:2 * 11 + 2] == [1, 12] and list(strides)[:2] == [5, 1]

@@ -40,6 +40,7 @@ import torch
 
 from quaternion_mpc_tpu_torch import examples
 from quaternion_mpc_tpu_torch.kernels import expansions as k8
+from quaternion_mpc_tpu_torch.kernels import line_search as k2
 from quaternion_mpc_tpu_torch.solver import fleet as tfl
 
 import quaternion_mpc_tpu_torch
@@ -429,7 +430,7 @@ def test_emulated_kernel_reads_strided_parameters(emulated, dtype):
         given = getattr(prob.params, name)
         t, extent = by_name[name]
         assert not given.is_contiguous() and t.data_ptr() == given.data_ptr(), name
-        assert extent == 33 and k8._strides(t) == (1, rows), name
+        assert extent == 33 and k2.strides(t) == (1, rows), name
     _hold(emulated, spec, prob, xs, us, lam, rho, "strided parameters")
 
 

@@ -26,7 +26,15 @@ fleet form here is `jax.vmap` of it over the batch axis.
 Then the tags: each model's specs carry its own where K2 has an
 instantiation for the spec's integrator, every other spec none; a tagged
 solve calls K2's wrapper once an iLQR iteration and an untagged one never;
-and the wrapper's own checks on the CPU."""
+and the wrapper's own checks on the CPU.
+
+K9 (`kernels.rollout`) on the same problems: its plain versions, what its
+wrapper runs on the CPU, against the reference's own lines: the open-loop
+rollout (the `init_step` `lax.scan`, solver/fleet.py:728-732), `total_cost`
+of a trajectory under drawn multipliers and of the final one (zero
+multipliers at ρ = 1e-30, :829-831) and the multiplier update (`cvals_k`,
+:815-818), f64 to 1e-12 of scale; a tagged solve calls its rollout once and
+its pricing al + 1 times, an untagged one or one with state rows never."""
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +52,7 @@ from quaternion_mpc_tpu_torch import scenarios as tsc
 from quaternion_mpc_tpu_torch.control import convex_mpc as tcv
 from quaternion_mpc_tpu_torch.control import quat_mpc as tq
 from quaternion_mpc_tpu_torch.kernels import line_search as k2
+from quaternion_mpc_tpu_torch.kernels import rollout as k9
 from quaternion_mpc_tpu_torch.models import attitude as tattitude
 from quaternion_mpc_tpu_torch.models import classic as tclassic
 from quaternion_mpc_tpu_torch.models import srb as tsrb
@@ -362,3 +371,131 @@ def test_conditioned_sets_aside_the_runaway_rollouts_only(name, batch, horizon, 
     ok = tfl.armijo_ok(out[2], out[6], kw["dV1"], kw["dV2"], kw["alphas"])
     first = ok & (torch.cumsum(ok.to(torch.int32), 0) == 1)
     assert not bool(((away & first).any(0) & scenarios).any()), "a runaway selection held"
+
+
+def _jax_open_loop(spec, prob):
+    """The reference's open-loop rollout of us_init (its `init_step` scan)."""
+
+    def init_step(x, u):
+        return jfl._fleet_step(spec, x, u, prob.params, prob.h), x
+
+    xN, xs = jax.lax.scan(init_step, prob.x0, prob.us_init)
+    return jnp.concatenate([xs, xN[None]], axis=0)
+
+
+def _jax_multipliers(prob, us, lam, rho):
+    """The reference's multiplier update after an AL iteration (`cvals_k`)."""
+    N = us.shape[0]
+
+    def cvals_k(u_k, lam_k, cb_k):
+        return jnp.maximum(0.0, lam_k + rho * (jfl.bmv(prob.Cu, u_k) + cb_k))
+
+    return jax.vmap(cvals_k)(us, lam, jfl.cb_knots(prob.cb, N))
+
+
+def _close(got, want, what):
+    want = np.asarray(want)
+    scale = max(np.abs(want).max(), 1e-300)
+    assert np.abs(got.numpy() - want).max() <= TOL * scale, what
+
+
+@pytest.mark.parametrize(
+    "name,batch,horizon",
+    [("standing", 5, 10), ("fixture", 3, 20), ("humanoid", 4, 6), ("convex", 5, 10),
+     ("convex_fixture", 3, 30), ("falling_cat", 4, 8)],
+)
+def test_k9_plain_versions_match_jax(name, batch, horizon):
+    """K9's rollout, its pricing (J under drawn multipliers, half of them
+    zero, at ρ = 1; the final cost) and its multiplier update, through the
+    wrapper on the CPU, against the reference's lines on the same inputs."""
+    spec, prob, _ = examples.line_search_case(name, batch, F64, "cpu", horizon, 8)
+    jspec, jprob = _jax_spec(spec), _jax_problem(prob)
+    us = prob.us_init
+    xs = k9.rollout(spec, prob, us)
+    _close(xs, _jax_open_loop(jspec, jprob), f"{name}: the open-loop rollout")
+    N, nc = us.shape[0], prob.Cu.shape[0]
+    rng = np.random.default_rng(4)
+    lam_np = 200.0 * rng.random((N, nc, batch)) * (rng.random((N, nc, batch)) < 0.5)
+    lam, rho = torch.from_numpy(lam_np), torch.tensor(1.0, dtype=F64)
+    J, bar = k9.price(spec, prob, xs, us, lam, rho, cost=True, lam_bar=True)
+    jxs, jus, jlam = _j(xs), _j(us), jnp.asarray(lam_np)
+    _close(J, _jax_total_cost(jspec, jxs, jus, jprob, jlam, jnp.asarray(1.0)), f"{name}: J")
+    _close(bar, _jax_multipliers(jprob, jus, jlam, jnp.asarray(1.0)), f"{name}: λ̄")
+    final, none = k9.price(spec, prob, xs, us, None, torch.tensor(1e-30, dtype=F64))
+    assert none is None
+    _close(final, _jax_total_cost(jspec, jxs, jus, jprob, jnp.zeros_like(jlam),
+                                  jnp.asarray(1e-30)), f"{name}: the final cost")
+    z = lam + rho * tfl.constraint_values(prob, xs, us)
+    assert bool((z >= 0).any()) and bool((z < 0).any()), "some rows active, some not"
+
+
+def test_k9_wrapper_runs_the_plain_versions_on_the_cpu_and_refuses_state_rows():
+    spec, prob, _ = examples.line_search_case("standing", 3, F64, "cpu", 6, 8)
+    before = (k9.rollout.launches, k9.price.launches)
+    xs = k9.rollout(spec, prob, prob.us_init)
+    assert torch.equal(xs, tfl.open_loop_rollout(spec, prob, prob.us_init))
+    lam = torch.zeros((6, 24, 3), dtype=F64)
+    rho = torch.tensor(1.0, dtype=F64)
+    J, bar = k9.price(spec, prob, xs, prob.us_init, lam, rho)
+    assert bar is None and torch.equal(J, tfl.total_cost(spec, xs, prob.us_init, prob, lam, rho))
+    assert (k9.rollout.launches, k9.price.launches) == before, "the plain versions count none"
+    with pytest.raises(ValueError, match="J, λ̄ or both"):
+        k9.price(spec, prob, xs, prob.us_init, lam, rho, cost=False)
+    with pytest.raises(ValueError, match="state rows"):
+        k9.check_rollout(spec, prob._replace(Cx=torch.zeros((24, 13, 3), dtype=F64)),
+                         prob.us_init)
+    with pytest.raises(ValueError, match="tagged"):
+        k9.check_price(spec._replace(line_search=None), prob, xs, prob.us_init, lam, rho)
+    with pytest.raises(ValueError, match="us must be"):
+        k9.check_rollout(spec, prob, prob.us_init[:, :9])
+    meta = prob.us_init.to("meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        k9.rollout(spec, prob, meta)
+
+
+@pytest.mark.parametrize("problem", ["quat_srb", "convex_fixture", "falling_cat", "state_rows",
+                                     "pendulum"])
+def test_a_tagged_solve_calls_k9_once_a_rollout_and_al_plus_one_pricings(monkeypatch, problem):
+    """A solve of a tagged model without state rows calls K9's rollout once
+    and its pricing al + 1 times (al multiplier updates, then the final
+    cost), each solve's outputs the plain path's; one with state rows Cx
+    (the quaternion fleet's problem with rows of zeros) and the pendulum's
+    (untagged) never."""
+    calls = {"rollout": 0, "price": 0}
+
+    def spy(entry, plain):
+        def fn(*args, **kw):
+            calls[entry] += 1
+            return plain(*args, **kw)
+        return fn
+
+    monkeypatch.setattr(k9, "rollout", spy("rollout", k9.open_loop_rollout_ref))
+    monkeypatch.setattr(k9, "price", spy("price", k9.price_ref))
+    if problem == "quat_srb":
+        opts = SolverOptions(al_iterations=2, ilqr_iterations=3, max_linesearch=8)
+        prob = tq.build_fleet_problem(*examples.standing_batch(3, 6, F64, "cpu"), 6)
+        sol = tfl.make_fleet_solver(tq.FLEET_MODEL_SPEC, opts, backend="sweep")(prob)
+        plain = tfl.make_fleet_solver(tq.FLEET_MODEL_SPEC._replace(line_search=None), opts,
+                                      backend="sweep")(prob)
+        assert all(torch.equal(a, b) for a, b in zip((sol.xs, sol.us, sol.cost, sol.lam),
+                                                      (plain.xs, plain.us, plain.cost, plain.lam)))
+        want = (1, 3)
+    elif problem == "convex_fixture":
+        spec, prob = examples.fixture_problem("convex", F64, "cpu")[:2]
+        tal.make_solver(spec, SolverOptions(al_iterations=2, ilqr_iterations=2))(prob)
+        want = (1, 3)
+    elif problem == "falling_cat":
+        spec, prob, _ = examples.falling_cat_fleet(3, F64, "cpu", N=6)
+        tal.make_solver(spec, SolverOptions(al_iterations=3, ilqr_iterations=1))(prob)
+        want = (1, 4)
+    elif problem == "state_rows":  # the quaternion fleet's problem with rows Cx·x
+        opts = SolverOptions(al_iterations=2, ilqr_iterations=2, max_linesearch=8)
+        prob = tq.build_fleet_problem(*examples.standing_batch(3, 6, F64, "cpu"), 6)
+        prob = prob._replace(Cx=torch.zeros((24, 13, 3), dtype=F64))
+        tfl.make_fleet_solver(tq.FLEET_MODEL_SPEC, opts, backend="sweep")(prob)
+        want = (0, 0)
+    else:
+        spec, prob = examples.classic_problem("pendulum", 6, F64, "cpu")
+        tal.make_solver(spec, SolverOptions(al_iterations=1, ilqr_iterations=2))(prob)
+        want = (0, 0)
+    assert (calls["rollout"], calls["price"]) == want

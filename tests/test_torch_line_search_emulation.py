@@ -50,6 +50,7 @@ import torch
 
 from quaternion_mpc_tpu_torch import examples
 from quaternion_mpc_tpu_torch.kernels import line_search as k2
+from quaternion_mpc_tpu_torch.kernels import rollout as k9
 
 import quaternion_mpc_tpu_torch
 
@@ -91,7 +92,7 @@ template <typename T>
 static int run(const void* const* in, const long long* ld, void* const* out, int N, int B, int K,
                int n_feet, int nc, int flags, int sms, int* plan) {
   Run<T> fn{in, ld, out, N, B, K, nc, flags, sms, plan};
-  const int err = with_model(flags >> MODEL_SHIFT, n_feet, fn);
+  const int err = with_model<Separate>(flags >> MODEL_SHIFT, n_feet, fn);
   return err < 0 ? 2 : err;
 }
 // sms: the multiprocessors the blocks are planned for (an H100's 132 as on
@@ -188,9 +189,9 @@ def _hold(lib, spec, prob, kw, what, in_shared=None, sms=SMS):
 
 
 def test_table_matches_the_wrapper(emulated):
-    table = (ctypes.c_int * 2)()
+    table = (ctypes.c_int * 3)()
     emulated.line_search_table(table)
-    assert tuple(table) == (k2.INPUTS, k2.OUTPUTS)
+    assert tuple(table) == (k2.INPUTS, k2.OUTPUTS, 2)  # 2: a row and a batch stride an input
     emulated.line_search_tags.restype = ctypes.c_char_p
     assert tuple(emulated.line_search_tags().decode().split()) == k2.INSTANTIATIONS
 
@@ -448,3 +449,232 @@ def test_emulated_block_writes_taken_and_copied_scenarios(emulated, dtype, batch
             assert torch.equal(got[1][..., b], kw["us"][..., b])
         else:
             assert not torch.equal(got[0][..., b], kw["xs"][..., b])
+
+
+# ---------------------------------------------------------------------------
+# K9, csrc/rollout.cu: the open-loop rollout and the AL pricing, whose models'
+# steps are K2's (csrc/step_models.cuh), emulated the same way and held
+# against their plain versions (`kernels.rollout.open_loop_rollout_ref`,
+# `price_ref`) through the wrapper's own tables: f64 to 1e-12 and f32 to 1e-6
+# of scale (xs and λ̄ of their largest finite magnitude, J of max(|J|, 1) a
+# scenario).
+# ---------------------------------------------------------------------------
+
+K9_RTOL = {torch.float64: 1e-12, torch.float32: 1e-6}
+# the instantiation each problem of `examples.line_search_case` runs
+K2_MODEL_OF = {"standing": "quat_srb_midpoint", "fixture": "quat_srb_midpoint",
+               "humanoid": "quat_srb_midpoint", "convex": "euler_srb_midpoint",
+               "convex_fixture": "euler_srb_euler", "falling_cat": "attitude_midpoint"}
+
+_K9_HARNESS = r"""
+#include "cuda_emulation.h"
+#include "rollout.cu"
+
+// with_model's fn: the launch's blocks one after another
+template <typename T, bool PRICE>
+struct Run {
+  Args<T> a;
+
+  template <typename M>
+  int run() {
+    if constexpr (PRICE)
+      return emulate_blocks((a.B + PRICE_LANES - 1) / PRICE_LANES, PRICE_THREADS,
+                            price_kernel<T, M>, a);
+    else
+      return emulate_blocks((a.B + ROLL_THREADS - 1) / ROLL_THREADS, ROLL_THREADS,
+                            rollout_kernel<T, M>, a);
+  }
+};
+template <typename T, bool PRICE>
+static int run(const void* const* in, const long long* st, void* const* out, int N, int B,
+               int n_feet, int nc, int flags) {
+  Run<T, PRICE> fn{make_args<T>(in, st, out, N, B, nc, flags)};
+  const int err = with_model<AsTorch>(flags >> MODEL_SHIFT, n_feet, fn);
+  return err < 0 ? 2 : err;
+}
+#define ENTRY(name, T, PRICE)                                                             \
+  extern "C" int name(const void* const* in, const long long* st, void* const* out,       \
+                      int N, int B, int n_feet, int nc, int flags) {                      \
+    return run<T, PRICE>(in, st, out, N, B, n_feet, nc, flags);                           \
+  }
+ENTRY(emulated_rollout_f32, float, false)
+ENTRY(emulated_rollout_f64, double, false)
+ENTRY(emulated_price_f32, float, true)
+ENTRY(emulated_price_f64, double, true)
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated_k9(tmp_path_factory):
+    compiler = shutil.which("g++")
+    if compiler is None:
+        pytest.skip("no host C++ compiler (g++) to build the emulation with")
+    work = tmp_path_factory.mktemp("rollout_emulation")
+    (work / "harness.cpp").write_text(_K9_HARNESS)
+    lib = work / "rollout_emulation.so"
+    subprocess.run(
+        [compiler, "-std=c++17", "-O1", "-ffp-contract=off", "-shared", "-fPIC", f"-I{HERE}",
+         f"-I{k9.SOURCE.parent}", "-o", str(lib), str(work / "harness.cpp")],
+        check=True, capture_output=True, text=True,
+    )
+    lib = ctypes.CDLL(str(lib))
+    for entry in ("rollout", "price"):
+        for t in ("f32", "f64"):
+            fn = getattr(lib, f"emulated_{entry}_{t}")
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _k9_rollout(lib, spec, prob, us):
+    """The wrapper's rollout with the emulated kernel in place of the card's;
+    xs starts as NaN, so that anything left unwritten shows."""
+    table, dims = k9.check_rollout(spec, prob, us)
+    N, B = dims[:2]
+    xs = torch.full((N + 1, spec.nx, B), float("nan"), dtype=us.dtype)
+    fn = getattr(lib, f"emulated_rollout_{'f64' if us.dtype == torch.float64 else 'f32'}")
+    assert fn(*k9.c_tables(table, (xs, None, None)), *dims) == 0
+    return xs
+
+
+def _k9_price(lib, spec, prob, xs, us, lam, rho, cost=True, lam_bar=True):
+    """The wrapper's pricing with the emulated kernel: (J or None, λ̄ or None)."""
+    table, dims = k9.check_price(spec, prob, xs, us, lam, rho)
+    N, B, _, nc, _ = dims
+    J = torch.full((B,), float("nan"), dtype=xs.dtype) if cost else None
+    bar = torch.full((N, nc, B), float("nan"), dtype=xs.dtype) if lam_bar else None
+    fn = getattr(lib, f"emulated_price_{'f64' if xs.dtype == torch.float64 else 'f32'}")
+    assert fn(*k9.c_tables(table, (None, J, bar)), *dims) == 0
+    return J, bar
+
+
+def _k9_close(got, want, what, rtol, per_scenario=False):
+    """Non-finite in the same places; the finite elements within ``rtol``
+    of the largest finite magnitude (``per_scenario``: of max(|want|, 1) each)."""
+    bad_g, bad_w = ~torch.isfinite(got), ~torch.isfinite(want)
+    assert torch.equal(bad_g, bad_w), f"{what}: {int(bad_g.sum())} non-finite, plain {int(bad_w.sum())}"
+    fin = torch.where(bad_w, 0.0, want)
+    scale = fin.abs().clamp_min(1.0) if per_scenario else fin.abs().max().clamp_min(1e-300)
+    err = float((torch.where(bad_w, 0.0, got - want).abs() / scale).max())
+    assert err <= rtol, f"{what}: {err:.3g} of scale"
+    return err
+
+
+def _k9_hold(lib, spec, prob, what, lam=None, rho=1.0, us=None, draw_lam=True):
+    """K9's rollout of ``us`` (us_init by default) and its pricing of the
+    rollout, J and λ̄ together and each alone, against the plain versions;
+    λ drawn (half zero, the rest up to 200: some rows active, some not)
+    unless given. Returns the emulated (xs, J, λ̄)."""
+    us = prob.us_init if us is None else us
+    dtype = us.dtype
+    rtol = K9_RTOL[dtype]
+    xs = _k9_rollout(lib, spec, prob, us)
+    _k9_close(xs, k9.open_loop_rollout_ref(spec, prob, us), f"{what} xs", rtol)
+    if lam is None and draw_lam:
+        N, nc, B = us.shape[0], prob.Cu.shape[0], us.shape[-1]
+        rng = np.random.default_rng(5)
+        lam = torch.as_tensor(200.0 * rng.random((N, nc, B)) * (rng.random((N, nc, B)) < 0.5),
+                              dtype=dtype)
+    rho_t = torch.tensor(rho, dtype=dtype)
+    want = k9.price_ref(spec, prob, xs, us, lam, rho_t, True, True)
+    for cost, lam_bar in ((True, True), (True, False), (False, True)):
+        J, bar = _k9_price(lib, spec, prob, xs, us, lam, rho_t, cost, lam_bar)
+        if cost:
+            _k9_close(J, want[0], f"{what} J", rtol, per_scenario=True)
+        if lam_bar:
+            _k9_close(bar, want[1], f"{what} λ̄", rtol)
+    return xs, *_k9_price(lib, spec, prob, xs, us, lam, rho_t)
+
+
+def test_k9_tables_match_the_wrapper(emulated_k9):
+    emulated_k9.rollout_table.argtypes = [ctypes.c_void_p]
+    table = (ctypes.c_int * 2)()
+    emulated_k9.rollout_table(table)
+    assert tuple(table) == (k9.INPUTS, k9.OUTPUTS)
+    emulated_k9.rollout_tags.restype = ctypes.c_char_p
+    assert tuple(emulated_k9.rollout_tags().decode().split()) == k9.INSTANTIATIONS == \
+        k2.INSTANTIATIONS
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize(
+    "name,batch,horizon",
+    [
+        ("standing", 70, 10),        # 64 scenarios a rollout block, 32 a pricing's: ragged
+        ("humanoid", 9, 20),         # two feet: nu 6, nc 12
+        ("fixture", 40, 20),         # leaves of batch extent 1 (references, weights, Cu, params)
+        ("convex", 33, 10),          # the Euler SRB, midpoint rule
+        ("convex_fixture", 5, 30),   # the Euler SRB, forward Euler, leaves shared
+        ("falling_cat", 35, 8),      # the attitude model: per-knot w, Qdf
+    ],
+)
+def test_k9_emulated_matches_plain(emulated_k9, dtype, name, batch, horizon):
+    """Each of the four instantiations (the quaternion SRB at four and two
+    feet) against the plain rollout, total_cost and multiplier update, with
+    λ̄ asked for and not, over ragged last blocks."""
+    spec, prob, _ = examples.line_search_case(name, batch, dtype, "cpu", horizon, 8)
+    table, dims = k9.check_rollout(spec, prob, prob.us_init)
+    assert k9.INSTANTIATIONS[dims[-1] >> 8] == K2_MODEL_OF[name]
+    _k9_hold(emulated_k9, spec, prob, f"{name} B={batch} N={horizon}")
+
+
+def _k9_feet(spec, prob, n):
+    """The problem with its first ``n`` feet (6 inequality rows a foot)."""
+    nu, nc = 3 * n, 6 * n
+    p = prob.params._replace(foot_pos=prob.params.foot_pos[:n])
+    return spec._replace(nu=nu), prob._replace(
+        u_ref=prob.u_ref[:, :nu], Rd=prob.Rd[:nu], Cu=prob.Cu[:nc, :nu], cb=prob.cb[..., :nc, :],
+        params=p, us_init=prob.us_init[:, :nu].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("name", ["standing", "convex"])
+@pytest.mark.parametrize("n_feet", [1, 2, 3])
+def test_k9_emulated_with_fewer_feet(emulated_k9, dtype, name, n_feet):
+    """One to three feet of the quaternion and the Euler fleet controllers'
+    problems (nu 3, 6, 9; nc 6, 12, 18)."""
+    spec, prob, _ = examples.line_search_case(name, 9, dtype, "cpu", 6, 8)
+    spec, prob = _k9_feet(spec, prob, n_feet)
+    _k9_hold(emulated_k9, spec, prob, f"{name} {n_feet} feet")
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_k9_emulated_with_leaves_of_batch_extent_one(emulated_k9, dtype):
+    """x_ref, u_ref, Cu and the multipliers cut to one shared column of a
+    batch-last tensor (batch stride 0, row stride B: read in place), the
+    per-knot w and cb of the fleet with a terminal weight Qdf, and zero
+    multipliers at the final cost's penalty (no λ given)."""
+    spec, prob, _ = examples.line_search_case("standing", 36, dtype, "cpu", 6, 8)
+    N, B = prob.us_init.shape[0], prob.us_init.shape[-1]
+    rng = np.random.default_rng(3)
+    cb = prob.cb[None].expand(N + 1, *prob.cb.shape).clone()
+    cb[:, 4::6][torch.from_numpy(rng.random((N + 1, 4, B)) < 0.3)] = 0.0
+    prob = prob._replace(x_ref=prob.x_ref[..., :1], u_ref=prob.u_ref[..., :1],
+                         Cu=prob.Cu[..., :1], cb=cb, Qdf=10.0 * prob.Qd,
+                         w=torch.as_tensor(1.0 + rng.random((N + 1, B)), dtype=dtype))
+    table, _ = k9.check_price(spec, prob, prob.us_init.new_zeros((N + 1, 13, B)),
+                              prob.us_init, None, torch.tensor(1.0, dtype=dtype))
+    assert [ld for _, ld in table[2:4]] == [1, 1] and table[8][1] == 1
+    assert k2.strides(table[2][0]) == (B, 0) and table[10][0] is None
+    lam = torch.full((N, prob.Cu.shape[0], 1), 0.5, dtype=dtype)
+    _k9_hold(emulated_k9, spec, prob, "shared leaves", lam=lam)
+    _k9_hold(emulated_k9, spec, prob, "no multipliers, final penalty", rho=1e-30, draw_lam=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_k9_emulated_spreads_an_overflowing_start_as_plain(emulated_k9, dtype):
+    """falling_cat starts that overflow: torques so large that a rollout runs
+    to Inf / NaN within the horizon (scenarios 1 and 4), a first state with
+    an Inf (5): xs, J and λ̄ non-finite in the same places as the plain
+    versions', the rest held as elsewhere."""
+    spec, prob, _ = examples.line_search_case("falling_cat", 7, dtype, "cpu", 8, 8)
+    huge = 1e18 if dtype == torch.float32 else 1e150
+    us = prob.us_init.clone()
+    us[2:, :, 1] *= huge
+    us[:, 0, 4] = huge
+    x0 = prob.x0.clone()
+    x0[5, 5] = float("inf")
+    prob = prob._replace(x0=x0, us_init=us)
+    xs, J, bar = _k9_hold(emulated_k9, spec, prob, "overflowing starts")
+    assert not bool(torch.isfinite(xs[..., [1, 4, 5]]).all(0).all(0).any())
+    assert bool(torch.isfinite(xs[..., [0, 2, 3, 6]]).all()) and not bool(torch.isfinite(J).all())

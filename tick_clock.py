@@ -42,7 +42,9 @@ Prints the card's name and power limit, then one JSON object:
   replays (3 for the falling_cat solve) after 2, each ending in a
   synchronise, the same of the graph alone on its buffers (no copy in or
   clone out) and of the host's part of a call (no synchronise), and the
-  device operations and busy ms of one traced replay.
+  device operations and busy ms of one traced replay, with the launches,
+  device operations and device ms inside the solver's K9 ranges
+  (`open_loop_rollout`, `pricing`; the convex step's `expansions` too).
 The parts that are not graphed use only functions the port has had since
 its hardware loop was graphed, and `chip_smoke.py`'s helpers of the same
 checkout (the last three of them use none); the graphed parts need
@@ -63,7 +65,11 @@ import torch
 FLEET_B = 4096
 # the hand-written kernels a trace splits out: tag -> part of the kernel's name
 KERNELS = {"K1": "riccati_sweep_kernel", "K2": "line_search_kernel",
-           "K4": "assoc_backward_kernel", "K7": "articulated_kernel", "K8": "expansions_kernel"}
+           "K4": "assoc_backward_kernel", "K7": "articulated_kernel", "K8": "expansions_kernel",
+           "K9 rollout": "rollout_kernel", "K9 price": "price_kernel"}
+# the solver's profiler ranges around K9's calls (or, on a spec K9 does not
+# run and in a checkout before it, around nothing: entered 0 times)
+K9_RANGES = ("open_loop_rollout", "pricing")
 
 
 def _trace(fn, ranges=()):
@@ -276,7 +282,7 @@ def fleet_step_graphed(device):
 
     opts = SolverOptions(al_iterations=2, ilqr_iterations=5, max_linesearch=8)
     inputs = examples.standing_batch(FLEET_B, 10, torch.float32, device)
-    return _graphed(quat_mpc.make_fleet_controller(10, opts), inputs)
+    return _graphed(quat_mpc.make_fleet_controller(10, opts), inputs, ranges=K9_RANGES)
 
 
 def walking_tick_graphed(device):
@@ -286,7 +292,7 @@ def walking_tick_graphed(device):
 
     step = rt.make_fleet_walking_step(10, cs._rti_opts(), warm_start=True)
     carry, sp, joy = examples.walking_batch(FLEET_B, 10, torch.float32, device, velx=0.3)
-    return _graphed(step, (carry, sp, joy), chain=True)
+    return _graphed(step, (carry, sp, joy), chain=True, ranges=K9_RANGES)
 
 
 def convex_step_graphed(device):
@@ -296,7 +302,8 @@ def convex_step_graphed(device):
 
     opts = SolverOptions(al_iterations=1, ilqr_iterations=5, max_linesearch=8)
     inputs = examples.standing_batch(FLEET_B, 10, torch.float32, device, controller="convex")
-    return _graphed(convex_mpc.make_fleet_controller(10, opts), inputs, ranges=("expansions",))
+    return _graphed(convex_mpc.make_fleet_controller(10, opts), inputs,
+                    ranges=("expansions", *K9_RANGES))
 
 
 def falling_cat_solve_graphed(device):
@@ -304,7 +311,7 @@ def falling_cat_solve_graphed(device):
     from quaternion_mpc_tpu_torch.solver import al_ilqr
 
     spec, prob, opts = examples.falling_cat_fleet(FLEET_B, torch.float32, device, seed=0)
-    return _graphed(al_ilqr.make_solver(spec, opts), (prob,), runs=3)
+    return _graphed(al_ilqr.make_solver(spec, opts), (prob,), runs=3, ranges=K9_RANGES)
 
 
 PARTS = {
