@@ -6,6 +6,7 @@
     python3 chip_smoke.py --kernels-only --k7-baseline OLD.cu   # and K7 timed beside another source of it
     python3 chip_smoke.py --kernels-only --k2-baseline OLD.cu   # and K2 held bit for bit and timed beside another
     python3 chip_smoke.py --kernels-only --k8-baseline OLD.cu[,OTHER.cu]   # and K8 the same
+    python3 chip_smoke.py --kernels-only --k9-baseline OLD.cu   # and K9 held bit for bit and timed beside another
     python3 chip_smoke.py --hardware-only  # phases 1-2, 14 and 15: the hardware loop, the fleet over ranks, the CLI; no result line
     python3 chip_smoke.py --graphs-only    # phases 1-2 and 16: the entry points' CUDA graphs against eager; no result line
 
@@ -316,7 +317,13 @@ also, with --k8-baseline (phase_k8_designs), other sources of it with the
 same C interface (the body before the template over the model, or the
 shipped one with another block shape), each held bit for bit against the
 shipped build at every checked shape of the instantiations it has and timed
-in turns with it, alone and with K1 after it. It prints no result line.
+in turns with it, alone and with K1 after it. For K9 also
+(phase_k9_designs): its build options (-DK9_UNSTAGED, -DK9_PLAN_OVERRIDE)
+and, with --k9-baseline, another source of it with the same C interface
+(the parent's), each held bit for bit against the shipped build (xs, λ̄ and
+J at K2's checked shapes, B=1 included) and timed in turns at K9_TIMED; its
+launch plans swept; each build's SASS counted by opcode. It prints no
+result line.
 """
 
 from __future__ import annotations
@@ -1260,12 +1267,15 @@ def phase_rollout_vs_plain(device):
 
 
 # K9 alone at each instantiation's main shape (K2_MAIN_OF's, by K2_TIMED's
-# tags), and the fleet step's f64 and B=1 shapes
+# tags), the fleet step's f64 and B=1 shapes, and the fleet throughput's B=256
+# and B=16384
 K9_TIMED = ((torch.float32, "standing", HORIZON, 8, 4096),
             (torch.float32, "convex", HORIZON, 8, 4096),
             (torch.float64, "convex_fixture", 30, 12, 256),
             (torch.float32, "falling_cat", 40, 12, 4096),
-            (torch.float64, "standing", HORIZON, 8, 4096), (torch.float32, "standing", 6, 12, 1))
+            (torch.float64, "standing", HORIZON, 8, 4096), (torch.float32, "standing", 6, 12, 1),
+            (torch.float32, "standing", HORIZON, 8, 256),
+            (torch.float32, "standing", HORIZON, 8, 16384))
 
 
 def phase_rollout_timing(device):
@@ -1670,6 +1680,244 @@ def phase_k2_designs(device, baseline=None):
                   f"{'J given' if given else 'J priced'} (thread 0 of the middle block; two stamps "
                   f"back to back {stamp}): {int(sum(split.values()))} in all: "
                   + ", ".join(f"{p} {int(c)}" for p, c in split.items()))
+
+
+# --kernels-only: other builds of K9 (the same source with a build option,
+# and with --k9-baseline another source with the same C interface: the
+# parent's csrc/rollout.cu beside its own headers), each held bit for bit
+# against the shipped build, and timed in turns with it at K9_TIMED's shapes;
+# the launch plans swept; and what cuobjdump's SASS of each build holds.
+K9_VARIANTS = {"unstaged": ("-DK9_UNSTAGED",), "plans": ("-DK9_PLAN_OVERRIDE",)}
+# the plans swept: the rollout's (S scenarios a block, threads); the
+# pricing's (S, knot rows), and the multiplier update's knots a block from
+# the rows up
+K9_ROLL_PLANS = ((8, 32), (8, 64), (8, 96), (16, 32), (16, 64), (16, 160), (16, 256),
+                 (32, 32), (32, 64), (32, 128), (32, 256), (64, 64), (64, 128), (64, 256))
+K9_PRICE_PLANS = ((8, 1), (8, 2), (8, 4), (8, 8), (16, 1), (16, 2), (16, 4), (32, 1), (32, 2))
+# -DK9_PHASE_CLOCKS: the stamps of thread 0 of one block; the rollout: 0
+# start, 1 the constants' barrier, 2 the first pass's drives, 3 + k after
+# the chain's step k; the pricing: 0 start, 1 the copies issued, 2 the
+# weights and the first knot's operands loaded and the copies landed (a
+# barrier), 3 the knots, 4 the AL terms' divisions between two barriers, 5
+# J written.
+K9_PRICE_PHASES = ("issue the copies of Cu, cb and λ",
+                   "the weights, the first knot's loads, the wait for the copies",
+                   "the knots (state and input sums, the inequality's rows)",
+                   "the AL terms' divisions (two barriers)", "sum over the knots")
+
+
+def _k9_launcher(lib, spec, prob, us, xs=None, lam=None, rho=None, cost=True, lam_bar=False):
+    """fn() that launches ``lib``'s K9 once into outputs made once and returns
+    them: the rollout of ``us`` where ``xs`` is None, else the pricing of
+    (xs, us) (J with ``cost``, λ̄ with ``lam_bar``); the tables are made once
+    too, so that fn() is the kernel's launch alone."""
+    from quaternion_mpc_tpu_torch.kernels import rollout as k9
+
+    like = dict(dtype=us.dtype, device=us.device)
+    N, B = us.shape[0], us.shape[-1]
+    if xs is None:
+        table, dims = k9.check_rollout(spec, prob, us)
+        outputs = (torch.empty((N + 1, spec.nx, B), **like), None, None)
+    else:
+        table, dims = k9.check_price(spec, prob, xs, us, lam, rho)
+        nc = dims[3]
+        outputs = (None, torch.empty((B,), **like) if cost else None,
+                   torch.empty((N, nc, B), **like) if lam_bar else None)
+    tables = k9.c_tables(table, outputs)
+    entry = getattr(lib, k9._ENTRY[(xs is not None, us.dtype)])
+
+    def fn():
+        err = entry(*tables, *dims, torch.cuda.current_stream().cuda_stream)
+        _check(err == 0, f"K9 launch failed with CUDA error {err}")
+        return outputs
+
+    fn.table, fn.dims, fn.outputs = table, dims, outputs  # the copies live as long as fn
+    return fn
+
+
+def _k9_calls(lib, spec, prob, kw, lam, plain_calls=False):
+    """{call: fn} of K9 on a problem: the rollout of us_init and, on that
+    rollout (the plain version's, so that every build prices the same xs),
+    the pricings the solver and phase 3 make: J and λ̄ with λ given and
+    with λ absent, the multiplier update (λ̄ alone), the final cost (J alone,
+    no λ, ρ = 1e-30), λ̄ alone with λ absent."""
+    from quaternion_mpc_tpu_torch.kernels import rollout as k9
+
+    us, rho = prob.us_init, kw["rho"]
+    xs = k9.open_loop_rollout_ref(spec, prob, us)
+    tiny = torch.full((), 1e-30, dtype=us.dtype, device=us.device)
+    return {"rollout": _k9_launcher(lib, spec, prob, us),
+            "J and λ̄, λ given": _k9_launcher(lib, spec, prob, us, xs, lam, rho, True, True),
+            "J and λ̄, λ absent": _k9_launcher(lib, spec, prob, us, xs, None, rho, True, True),
+            "multiplier update": _k9_launcher(lib, spec, prob, us, xs, lam, rho, False, True),
+            "final cost": _k9_launcher(lib, spec, prob, us, xs, None, tiny, True, False),
+            "λ̄ alone, λ absent": _k9_launcher(lib, spec, prob, us, xs, None, rho, False, True)}
+
+
+def _k9_sass(kbuild, lib, out_path):
+    """cuobjdump's SASS of a K9 build to out_path; {kernel: {"instructions",
+    opcode: count}} of its kernels (by `_k9_kernel`'s names)."""
+    cuobjdump = pathlib.Path(kbuild._nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    out_path.write_text(dump)
+    kernels, name = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = "{} {} {} n_feet={}".format(*_k9_kernel(m[1])) if "_kernel" in m[1] else None
+            if name:
+                kernels[name] = {"instructions": 0}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)", line)
+        if name and m:
+            op = m[1]
+            kernels[name]["instructions"] += 1
+            kernels[name][op] = kernels[name].get(op, 0) + 1
+    return kernels
+
+
+def phase_k9_designs(device, baseline=None):
+    """--kernels-only: K9 built with each of K9_VARIANTS and, given
+    ``baseline``, that source (as it was built: K9's FLAGS), each held bit
+    for bit against the shipped build (xs, λ̄ and J, every element, NaN
+    matching NaN of any sign) on `_k9_calls`' launches at K2_CHECKED's shapes
+    (B=1 included), the hard case and the falling_cat runaway case, f32 and
+    f64, and timed in turns with it (the shipped build, the others, then back:
+    shipped, parent, parent, shipped with the baseline alone) by events
+    around a replayed graph at K9_TIMED's shapes: the rollout, the
+    multiplier update and the final cost; first the SASS of the shipped
+    and the baseline builds (cuobjdump), each kernel's instructions counted
+    by opcode (the quaternion SRB's four feet printed; each whole dump
+    beside its library, `.sass`). Then every plan of K9_ROLL_PLANS and
+    K9_PRICE_PLANS a shape can take, timed in turns through the
+    -DK9_PLAN_OVERRIDE build beside the one the policy picks."""
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.kernels import build as kbuild
+    from quaternion_mpc_tpu_torch.kernels import rollout as k9
+
+    builds = {name: lambda flags=flags: kbuild.build(k9.SOURCE, k9.FLAGS + flags)
+              for name, flags in K9_VARIANTS.items()}
+    if baseline:
+        builds["parent"] = lambda: kbuild.build(pathlib.Path(baseline).resolve(), k9.FLAGS)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        paths = dict(zip(builds, pool.map(lambda build: build(), builds.values())))
+    print(f"[K9] {len(paths)} more builds in {time.perf_counter() - t0:.1f} s")
+    for name, path in paths.items():
+        for k in kbuild.ptxas_report(path):
+            if "n_feet=4" in (tag := "{} {} {} n_feet={}".format(*_k9_kernel(k["name"]))) \
+                    or "attitude" in tag:
+                print(f"[K9] ptxas {name} {tag}: {k['registers']} registers, {k['stack']} bytes "
+                      f"stack, spill {k['stores']} / {k['loads']} bytes")
+    libs = {"shipped": k9._lib(), **{name: k9.bind(path) for name, path in paths.items()}}
+    others = [name for name in libs if name != "shipped"]
+
+    # the machine code: instructions by opcode, the quaternion SRB at four feet
+    for lib_name in ("shipped", *(["parent"] if baseline else [])):
+        path = k9.build() if lib_name == "shipped" else paths[lib_name]
+        kernels = _k9_sass(kbuild, path, path.with_suffix(".sass"))
+        print(f"[K9] SASS {lib_name}: {path.with_suffix('.sass')}")
+        for kernel, ops in sorted(kernels.items()):
+            if "quat_srb_midpoint" not in kernel or "n_feet=4" not in kernel:
+                continue
+            top = sorted(((n, op) for op, n in ops.items() if op != "instructions"), reverse=True)
+            print(f"[K9] SASS {lib_name} {kernel}: {ops['instructions']} instructions; "
+                  + ", ".join(f"{op} {n}" for n, op in top[:24]))
+
+    # bits: every element of every output against the shipped build's
+    differ = {name: [0, 0, 0, 0] for name in others}  # elements, of, launches off, launches
+    for dtype in (torch.float32, torch.float64):
+        for tag, name, (spec, prob, kw) in _k2_cases(dtype, device):
+            lam = _k9_lam(prob, prob.us_init.shape[0], prob.us_init.shape[-1], dtype, device)
+            want = {call: [None if o is None else o.clone() for o in fn()]
+                    for call, fn in _k9_calls(libs["shipped"], spec, prob, kw, lam).items()}
+            for lib_name in others:
+                for call, fn in _k9_calls(libs[lib_name], spec, prob, kw, lam).items():
+                    n, _ = _k2_differ(fn(), want[call])
+                    d = differ[lib_name]
+                    d[0] += n
+                    d[1] += sum(o.numel() for o in want[call] if o is not None)
+                    d[2] += n > 0
+                    d[3] += 1
+                    if n:
+                        print(f"[K9] bits: {lib_name} {tag} {call}: {n} elements differ")
+    torch.cuda.synchronize()
+    for lib_name, (n, of, off, launches) in differ.items():
+        print(f"[K9] bits: {lib_name} against the shipped build over {launches} launches (xs, λ̄ "
+              f"and J; K2_CHECKED's shapes, B=1 included, the hard case and the falling_cat "
+              f"runaway case, f32 and f64, λ given and absent): {n} of {of:,} elements differ, "
+              f"in {off} launches")
+    _check(all(d[0] == 0 for d in differ.values()),
+           f"K9: a build's outputs differ from the shipped build's: {differ}")
+
+    # the builds in turns at K9_TIMED's shapes
+    timed = ["shipped", *(name for name in others if name != "plans")]
+    for dtype, name, horizon, n_alphas, batch in K9_TIMED:
+        spec, prob, kw = examples.line_search_case(name, batch, dtype, device, horizon, n_alphas)
+        lam = _k9_lam(prob, horizon, batch, dtype, device)
+        fns = {lib_name: _k9_calls(libs[lib_name], spec, prob, kw, lam) for lib_name in timed}
+        us = prob.us_init
+        xs = k9.open_loop_rollout_ref(spec, prob, us)
+        tiny = torch.full((), 1e-30, dtype=dtype, device=device)
+        works = {"rollout": k9.rollout_work(spec, prob, us),
+                 "multiplier update": k9.price_work(spec, prob, xs, us, lam, kw["rho"], False, True),
+                 "final cost": k9.price_work(spec, prob, xs, us, None, tiny)}
+        for call, work in works.items():
+            times = {lib_name: [] for lib_name in timed}
+            for lib_name in timed + timed[::-1]:
+                times[lib_name].append(_graph_time(fns[lib_name][call], reps=50) * 1e3)
+            bound_ms, bound_by = _bound(work, dtype)
+            print(f"[K9] designs {_k2_shape(name, dtype, horizon, n_alphas, batch)} {call}, in "
+                  f"turns forward / backward (bound {bound_ms:.5f} ms by {bound_by}): " + "; ".join(
+                      f"{lib_name} {times[lib_name][0]:.4f} / {times[lib_name][1]:.4f} ms "
+                      f"({100 * bound_ms / statistics.mean(times[lib_name]):.2f}% of the bound)"
+                      for lib_name in timed))
+
+    # the plans: every one a shape can take, in turns, beside the policy's
+    lib = libs["plans"]
+    lib.rollout_override.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.price_override.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.rollout_override.restype = lib.price_override.restype = None
+    for dtype, name, horizon, n_alphas, batch in K9_TIMED:
+        spec, prob, kw = examples.line_search_case(name, batch, dtype, device, horizon, n_alphas)
+        lam = _k9_lam(prob, horizon, batch, dtype, device)
+        calls = _k9_calls(lib, spec, prob, kw, lam)
+        shape = _k2_shape(name, dtype, horizon, n_alphas, batch)
+        policy = {call: k9.plans(lib, calls[call].table, calls[call].dims, calls[call].outputs,
+                                 dtype, torch.cuda.get_device_properties(device).multi_processor_count)
+                  for call in ("rollout", "multiplier update", "final cost")}
+        price_plans = [(S, r) for S, r in K9_PRICE_PLANS if S <= 4 * batch + 32 and r <= horizon + 1]
+        sweeps = {
+            "rollout": [(lambda S=S, T=T: lib.rollout_override(S, T), f"S={S} T={T}")
+                        for S, T in K9_ROLL_PLANS if T % S == 0 and S <= 4 * batch + 64],
+            "final cost": [(lambda S=S, r=r: lib.price_override(S, r, 0), f"S={S} rows={r}")
+                           for S, r in price_plans],
+            "multiplier update": [(lambda S=S, r=r, k=k: lib.price_override(S, r, k),
+                                   f"S={S} rows={r} knots={k}")
+                                  for S, r in price_plans if r <= horizon
+                                  for k in sorted({r, 2 * r, 4 * r, -(-horizon // 2), horizon})
+                                  if k <= horizon],
+        }
+        for call, plans in sweeps.items():
+            times = {label: [] for _, label in plans}
+            for set_plan, label in plans + plans[::-1]:
+                set_plan()
+                times[label].append(_graph_time(calls[call], reps=20) * 1e3)
+            lib.rollout_override(0, 0)
+            lib.price_override(0, 0, 0)
+            policy_ms = _graph_time(calls[call], reps=20) * 1e3
+            best = min(times, key=lambda label: statistics.mean(times[label]))
+            p = policy[call]
+            picked = (f"S={p['roll_S']} T={p['roll_threads']} chunk={p['roll_chunk']}"
+                      if call == "rollout" else
+                      f"S={p['price_S']} rows={p['price_rows']} knots={p['price_knots']} groups="
+                      f"{p['price_groups']} {p['price_bytes']} bytes")
+            print(f"[K9] plans {shape} {call} (ms, in turns forward / backward): " + "; ".join(
+                f"{label} {ts[0]:.4f} / {ts[1]:.4f}" for label, ts in times.items())
+                + f"; fastest {best}; the policy's ({picked}) {policy_ms:.4f}")
+
 
 
 # --kernels-only --k8-baseline: other sources of K8 with the same C
@@ -5761,7 +6009,7 @@ def main(argv) -> int:
     baselines = dict(zip(argv[1::2], argv[2::2]))
     kernels_only = (argv[:1] == ["--kernels-only"] and len(argv) % 2 == 1
                     and set(baselines) <= {"--k7-baseline", "--k2-baseline", "--k8-baseline",
-                                           "--k1-baseline"}
+                                           "--k1-baseline", "--k9-baseline"}
                     and len(baselines) == len(argv) // 2)
     workers = {**WORKERS, **ACT_WORKERS, **HW_WORKERS, "hardware-threaded": phase_hw_threaded,
                "hardware-peer-profile": _worker_hw_peer_profile,
@@ -5769,7 +6017,7 @@ def main(argv) -> int:
     worker = argv[1] if len(argv) == 2 and argv[0] == "--worker" and argv[1] in workers else None
     if argv and not (kernels_only or worker or hardware_only or graphs_only):
         print("usage: chip_smoke.py [--kernels-only [--k1-baseline SOURCE] [--k7-baseline SOURCE] "
-              "[--k2-baseline SOURCE] "
+              "[--k2-baseline SOURCE] [--k9-baseline SOURCE] "
               "[--k8-baseline SOURCE[,SOURCE...]] "
               "| --hardware-only | --graphs-only | "
               "--worker "
@@ -5846,6 +6094,7 @@ def main(argv) -> int:
         phase_line_search_timing(device)
         phase_expansions_timing(device)
         phase_rollout_timing(device)
+        phase_k9_designs(device, baselines.get("--k9-baseline"))
         phase_k2_designs(device, baselines.get("--k2-baseline"))
         if "--k8-baseline" in baselines:
             phase_k8_designs(device, baselines["--k8-baseline"])
@@ -6123,10 +6372,13 @@ def main(argv) -> int:
         "source": "quaternion_mpc_tpu_torch/csrc/rollout.cu",
         "replaces": K9_ENTRIES[entry],
         "instantiation": inst,
-        "design": ("a thread a scenario, x in registers over the knots, each xs row written "
-                   "coalesced" if entry == "rollout" else
-                   "a block of 32 scenarios x 8 knot rows, each knot's cost and λ̄ a thread, the "
-                   "costs summed over the knots after a barrier")
+        "design": ("every knot's drive (the inputs' part of the step) first, a thread a (knot, "
+                   "scenario), to shared memory; then a thread a scenario runs the chain of "
+                   "advances, x in registers, each xs row written coalesced" if entry == "rollout"
+                   else "four lanes a (knot, scenario), lane q the rows r ≡ q (mod 4), combined by "
+                   "shuffles; the tile's Cu, cb and λ staged by cp.async; the final cost a tile's "
+                   "knots in one block, summed after a barrier; the multiplier update a grid over "
+                   "(tile, knot group)")
                   + "; PyTorch's rounding and order of summation, -fmad=false; the model a "
                     "template argument (csrc/step_models.cuh, K2's structs)",
         # every counted path of this process that runs this instantiation,

@@ -1,8 +1,9 @@
 """Where K1 (the fleet Riccati sweep), K4 (the associative-scan backward
-pass) and K8 (the knot expansions) spend their clocks on the card.
+pass), K8 (the knot expansions) and K9 (the open-loop rollout and the AL
+pricing) spend their clocks on the card.
 
-    python3 k1_phase_clocks.py          # all three
-    python3 k1_phase_clocks.py k1       # or k4, or k8
+    python3 k1_phase_clocks.py          # all four
+    python3 k1_phase_clocks.py k1       # or k4, or k8, or k9
 
 K1: builds `quaternion_mpc_tpu_torch/csrc/riccati_sweep.cu` a second time with
 -DK1_PHASE_CLOCKS, which makes lane 0 of the first scenario of the middle
@@ -32,6 +33,17 @@ convex fixture's, the falling_cat fleet's) and prints each warp's clocks:
 staging and the barrier after it, computing, storing, the wait at the
 barrier that hands on λ̄ and the active rows, summing its rows of luu and lu
 and storing them.
+
+K9: builds `csrc/rollout.cu` with -DK9_PHASE_CLOCKS, which makes thread 0 of
+the middle block stamp clock64() at the ends of its phases, launches the
+rollout, the multiplier update (λ̄ alone) and the final cost (J alone, no
+λ) at K9_SHAPES and prints: for the rollout the constants (M::load and the
+barrier), the drives of every knot (and the barrier), the chain's steps
+(the mean of one `advance` with its xs row: the chain's latency floor is N
+of them) and the whole; for the pricing the copies issued, the weights and
+the first knot's loads with the wait for the copies, the knots (the state
+and input sums, the inequality's rows), the barrier and the sum over the
+knots.
 
 A stamp itself costs clocks (two stamps back to back are printed), so read
 the phases against each other, not as absolute times; a kernel's time is
@@ -180,10 +192,67 @@ def k8_clocks(device) -> None:
                 + f" (starts {int(r[0] - start)} after warp 0)")
 
 
+# K9: (dtype, problem, N, B): the quaternion SRB's fleet step (and at B=256,
+# and in f64), the convex fleet's, the convex fixture's (forward Euler, f64)
+# and the falling_cat fleet's
+K9_SHAPES = ((torch.float32, "standing", 10, 4096), (torch.float64, "standing", 10, 4096),
+             (torch.float32, "standing", 10, 256), (torch.float32, "convex", 10, 4096),
+             (torch.float64, "convex_fixture", 30, 256), (torch.float32, "falling_cat", 40, 4096))
+
+
+def k9_clocks(device) -> None:
+    import chip_smoke
+    from quaternion_mpc_tpu_torch import examples
+    from quaternion_mpc_tpu_torch.kernels import build as kbuild
+    from quaternion_mpc_tpu_torch.kernels import rollout as k9
+
+    lib = k9.bind(kbuild.build(k9.SOURCE, k9.FLAGS + ("-DK9_PHASE_CLOCKS",)))
+    lib.rollout_clock_block.argtypes = [ctypes.c_int]
+    lib.rollout_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.rollout_clock_block.restype = lib.rollout_clocks.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for dtype, name, horizon, batch in K9_SHAPES:
+        spec, prob, kw = examples.line_search_case(name, batch, dtype, device, horizon, 8)
+        lam = chip_smoke._k9_lam(prob, horizon, batch, dtype, device)
+        calls = chip_smoke._k9_calls(lib, spec, prob, kw, lam)
+        shipped = chip_smoke._k9_calls(k9._lib(), spec, prob, kw, lam)
+        tag = f"{chip_smoke.K2_MODEL[name]} {name} {str(dtype)[6:]} N={horizon} B={batch}"
+        for call in ("rollout", "multiplier update", "final cost"):
+            fn = calls[call]
+            plan = k9.plans(lib, fn.table, fn.dims, fn.outputs, dtype, sms)
+            blocks = plan["roll_blocks"] if call == "rollout" else plan["price_blocks"]
+            if lib.rollout_clock_block(blocks // 2) != 0:
+                raise RuntimeError("setting the stamping block failed")
+            for _ in range(3):
+                got = fn()
+            torch.cuda.synchronize()
+            want = shipped[call]()
+            if not all(g is None or torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError("the instrumented build disagrees with the kernel")
+            stamps = np.zeros(160, dtype=np.int64)
+            if lib.rollout_clocks(stamps.ctypes.data, len(stamps)) != 0:
+                raise RuntimeError("reading the stamps failed")
+            if call == "rollout":
+                steps = np.diff(stamps[2:3 + min(horizon, 157)])
+                print(f"[clocks] K9 {tag} rollout (S={plan['roll_S']}, {plan['roll_threads']} "
+                      f"threads, block {blocks // 2}): {stamps[2 + min(horizon, 157)] - stamps[0]} "
+                      f"clocks in all: constants {stamps[1] - stamps[0]}, drives "
+                      f"{stamps[2] - stamps[1]}, the chain {stamps[2 + min(horizon, 157)] - stamps[2]}"
+                      f" ({steps.mean():.0f} a step, first {steps[0]}, the rest "
+                      f"{steps[1:].mean() if len(steps) > 1 else 0:.0f}; the floor N x a step)")
+                continue
+            end = 6 if call == "final cost" else 4
+            parts = np.diff(stamps[:end])
+            print(f"[clocks] K9 {tag} {call} (S={plan['price_S']}, rows {plan['price_rows']}, "
+                  f"{plan['price_knots']} knots a block, block {blocks // 2}): "
+                  f"{stamps[end - 1] - stamps[0]} clocks in all: "
+                  + ", ".join(f"{p} {int(c)}" for p, c in zip(chip_smoke.K9_PRICE_PHASES, parts)))
+
+
 def main(argv) -> int:
-    which = set(argv) or {"k1", "k4", "k8"}
-    if not which <= {"k1", "k4", "k8"}:
-        print("usage: k1_phase_clocks.py [k1] [k4] [k8]", file=sys.stderr)
+    which = set(argv) or {"k1", "k4", "k8", "k9"}
+    if not which <= {"k1", "k4", "k8", "k9"}:
+        print("usage: k1_phase_clocks.py [k1] [k4] [k8] [k9]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("k1_phase_clocks: no CUDA device", file=sys.stderr)
@@ -203,6 +272,8 @@ def main(argv) -> int:
         k4_clocks(device)
     if "k8" in which:
         k8_clocks(device)
+    if "k9" in which:
+        k9_clocks(device)
     if "k1" not in which:
         return 0
     lib = ctypes.CDLL(str(kbuild.build(rs.SOURCE, ("-DK1_PHASE_CLOCKS",))))

@@ -3,7 +3,12 @@
 // struct: its sizes (NX, NE, NU; QI, the quaternion's index in x or -1), the
 // constants of its step that a scenario computes once from the model's
 // parameters (VALUES of them, written by load), and the step itself, in the
-// order of the operations of its plain PyTorch model:
+// order of the operations of its plain PyTorch model. The step is two parts:
+// `drive`, what depends on the inputs u alone (D values: the SRBs' v̇ and
+// ω̇ or moment, the attitude model's u itself), and `advance`, the rest,
+// which takes x and the drive; `step` is drive then advance, the same
+// operations in the same order, so that K2's bits do not depend on the split
+// and K9 can compute every knot's drive off its serial chain:
 // - QuatSrbMidpoint<NF> (models/srb.py quat_srb_dynamics_fleet): x = [p, q,
 //   v, ω], the quaternion at 3; the moment Σ rᵢ×fᵢ + c×(m_c·g_body), the
 //   adjugate inverse of the inertia, gravity through the frozen rotation; no
@@ -142,48 +147,54 @@ __device__ __forceinline__ void force_and_moment(const T* u, const Sm<T>& r_, T*
 // (3), the CoM moment c × (m_c·g_body) (3), the mass.
 template <int NF, typename Ops>
 struct QuatSrbMidpoint {
-  static constexpr int NX = 13, NE = 12, NU = 3 * NF, QI = 3, VALUES = 3 * NF + 16;
+  static constexpr int NX = 13, NE = 12, NU = 3 * NF, QI = 3, VALUES = 3 * NF + 16, D = 6;
 
+  // Every parameter is read before the inverse's divisions, whose slow
+  // paths would otherwise hold back the loads after them.
   template <typename T>
   __device__ static void load(const In<T>* prm, long long b, T* m) {
     const Col<T> foot = column(prm[P_FOOT], b), com = column(prm[P_COM_OFFSET], b),
                  rot = column(prm[P_ROT], b);
     for (int i = 0; i < 3 * NF; ++i) m[i] = foot[i];
+    const T r6 = rot[6], r7 = rot[7], r8 = rot[8], c0 = com[0], c1 = com[1], c2 = com[2];
+    const T com_mass = column(prm[P_COM_MASS], b)[0], mass = column(prm[P_MASS], b)[0];
     T* inv = m + 3 * NF;
     inverse3(column(prm[P_INERTIA], b), inv);
-    T g_body[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) g_body[c] = T(-GRAVITY) * rot[6 + c];  // Rᵀ g_world
-    const T com_mass = column(prm[P_COM_MASS], b)[0];
+    // Rᵀ g_world
+    const T g_body[3] = {T(-GRAVITY) * r6, T(-GRAVITY) * r7, T(-GRAVITY) * r8};
     const T mg[3] = {com_mass * g_body[0], com_mass * g_body[1], com_mass * g_body[2]};
-    const T c0 = com[0], c1 = com[1], c2 = com[2];
     T* rest = inv + 9;
 #pragma unroll
     for (int c = 0; c < 3; ++c) rest[c] = g_body[c];
     rest[3] = Ops::cross_term(c1, mg[2], c2, mg[1]);
     rest[4] = Ops::cross_term(c2, mg[0], c0, mg[2]);
     rest[5] = Ops::cross_term(c0, mg[1], c1, mg[0]);
-    rest[6] = column(prm[P_MASS], b)[0];
+    rest[6] = mass;
   }
 
-  // x ← x + h·f(x + ½h·f(x, u), u). The forces set v̇ and ω̇ alone, so both
-  // evaluations of f share them. m: the scenario's constants.
+  // The drive d = [v̇, ω̇]: the forces set them alone, so both evaluations of
+  // f share them. m: the scenario's constants.
   template <typename T>
-  __device__ static void step(T* x, const T* u, const Sm<T>& m, T h) {
+  __device__ static void drive(const T* u, const Sm<T>& m, T* d) {
     constexpr int INV = 3 * NF, G_BODY = INV + 9, COM = G_BODY + 3, MASS = COM + 3;
     T force[3], moment[3];
     force_and_moment<Ops, T, NF>(u, m, force, moment);
-    T v_dot[3], w_dot[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) moment[c] = moment[c] + m[COM + c];
     const T mass = m[MASS];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) v_dot[c] = force[c] / mass + m[G_BODY + c];
+    for (int c = 0; c < 3; ++c) d[c] = force[c] / mass + m[G_BODY + c];
 #pragma unroll
     for (int r = 0; r < 3; ++r)
-      w_dot[r] = (m[INV + 3 * r] * moment[0] + m[INV + 3 * r + 1] * moment[1]) +
+      d[3 + r] = (m[INV + 3 * r] * moment[0] + m[INV + 3 * r + 1] * moment[1]) +
                  m[INV + 3 * r + 2] * moment[2];
+  }
 
+  // x ← x + h·f(x + ½h·f(x, u), u) of the drive d.
+  template <typename T>
+  __device__ static void advance(T* x, const T* d, const Sm<T>&, T h) {
+    const T* v_dot = d;
+    const T* w_dot = d + 3;
     const T half_h = T(0.5) * h;
     T q_dot[4], q_m[4], w_m[3], v_m[3];
     quat_rate(x + 3, x + 10, q_dot);
@@ -205,6 +216,13 @@ struct QuatSrbMidpoint {
       x[10 + c] = x[10 + c] + h * w_dot[c];
     }
   }
+
+  template <typename T>
+  __device__ static void step(T* x, const T* u, const Sm<T>& m, T h) {
+    T d[D];
+    drive(u, m, d);
+    advance(x, d, m, h);
+  }
 };
 
 // The Euler SRB of the convex baseline (models/srb.py
@@ -214,14 +232,15 @@ struct QuatSrbMidpoint {
 // (3·NF), the inverse inertia (9), the mass.
 template <int NF, bool FORWARD, typename Ops>
 struct EulerSrb {
-  static constexpr int NX = 12, NE = 12, NU = 3 * NF, QI = -1, VALUES = 3 * NF + 10;
+  static constexpr int NX = 12, NE = 12, NU = 3 * NF, QI = -1, VALUES = 3 * NF + 10, D = 6;
 
   template <typename T>
   __device__ static void load(const In<T>* prm, long long b, T* m) {
     const Col<T> foot = column(prm[P_FOOT], b);
     for (int i = 0; i < 3 * NF; ++i) m[i] = foot[i];
+    const T mass = column(prm[P_MASS], b)[0];  // read before the inverse's divisions
     inverse3(column(prm[P_INERTIA], b), m + 3 * NF);
-    m[3 * NF + 9] = column(prm[P_MASS], b)[0];
+    m[3 * NF + 9] = mass;
   }
 
   // ẋ at x: the rpy rate of the yaw-only map, v, ω̇ = (Rz·I⁻¹·Rzᵀ)·moment,
@@ -254,13 +273,21 @@ struct EulerSrb {
     for (int i = 0; i < 3; ++i) xd[9 + i] = v_dot[i];
   }
 
+  // The drive d = [v̇, moment]: neither depends on x.
   template <typename T>
-  __device__ static void step(T* x, const T* u, const Sm<T>& m, T h) {
-    T force[3], moment[3], v_dot[3], xd[NX];
-    force_and_moment<Ops, T, NF>(u, m, force, moment);
+  __device__ static void drive(const T* u, const Sm<T>& m, T* d) {
+    T force[3];
+    force_and_moment<Ops, T, NF>(u, m, force, d + 3);
     const T mass = m[3 * NF + 9];
 #pragma unroll
-    for (int c = 0; c < 3; ++c) v_dot[c] = force[c] / mass + (c == 2 ? T(-GRAVITY) : T(0));
+    for (int c = 0; c < 3; ++c) d[c] = force[c] / mass + (c == 2 ? T(-GRAVITY) : T(0));
+  }
+
+  template <typename T>
+  __device__ static void advance(T* x, const T* d, const Sm<T>& m, T h) {
+    const T* v_dot = d;
+    const T* moment = d + 3;
+    T xd[NX];
     rate(x, v_dot, moment, m, xd);
     if constexpr (!FORWARD) {
       const T half_h = T(0.5) * h;
@@ -272,6 +299,13 @@ struct EulerSrb {
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = x[i] + h * xd[i];
   }
+
+  template <typename T>
+  __device__ static void step(T* x, const T* u, const Sm<T>& m, T h) {
+    T d[D];
+    drive(u, m, d);
+    advance(x, d, m, h);
+  }
 };
 
 // The attitude model of falling_cat under the midpoint rule
@@ -279,7 +313,7 @@ struct EulerSrb {
 // a body torque. Its constants: the inertia (9), its inverse (9).
 template <typename Ops>
 struct AttitudeMidpoint {
-  static constexpr int NX = 7, NE = 6, NU = 3, QI = 0, VALUES = 18;
+  static constexpr int NX = 7, NE = 6, NU = 3, QI = 0, VALUES = 18, D = 3;
 
   template <typename T>
   __device__ static void load(const In<T>* prm, long long b, T* m) {
@@ -305,16 +339,30 @@ struct AttitudeMidpoint {
                   m[9 + 3 * r + 2] * moment[2];
   }
 
+  // The step depends on x throughout: the drive is u itself.
   template <typename T>
-  __device__ static void step(T* x, const T* u, const Sm<T>& m, T h) {
+  __device__ static void drive(const T* u, const Sm<T>&, T* d) {
+#pragma unroll
+    for (int i = 0; i < NU; ++i) d[i] = u[i];
+  }
+
+  template <typename T>
+  __device__ static void advance(T* x, const T* d, const Sm<T>& m, T h) {
     T xd[NX], x_m[NX];
-    rate(x, u, m, xd);
+    rate(x, d, m, xd);
     const T half_h = T(0.5) * h;
 #pragma unroll
     for (int i = 0; i < NX; ++i) x_m[i] = x[i] + half_h * xd[i];
-    rate(x_m, u, m, xd);
+    rate(x_m, d, m, xd);
 #pragma unroll
     for (int i = 0; i < NX; ++i) x[i] = x[i] + h * xd[i];
+  }
+
+  template <typename T>
+  __device__ static void step(T* x, const T* u, const Sm<T>& m, T h) {
+    T d[D];
+    drive(u, m, d);
+    advance(x, d, m, h);
   }
 };
 

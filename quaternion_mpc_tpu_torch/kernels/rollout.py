@@ -18,21 +18,29 @@ and K8 (PERF.md). Two entries:
   max(λ + ρ·(Cu·u + cb), 0) (N, nc, B), one launch. ``lam`` None prices
   with zero multipliers (the solver's final cost, at ρ = 1e-30).
 
-What bounds it on the H100: bytes (`rollout_work`, `price_work`); the
-rollout is a serial chain of N steps a scenario, whose latency sets its
-time below many waves.
+What bounds it on the H100: bytes (`rollout_work`, `price_work`); below
+them the rollout's latency floor is one scenario's serial chain of N
+`advance`s, which the bytes bound does not state (PERF.md records it from
+`k1_phase_clocks.py k9`).
 
-Design (csrc/rollout.cu, simple first): the rollout a thread a scenario, x in
-registers over the knots, each xs row written coalesced along the batch; the
-pricing a block of 32 scenarios x 8 knot rows, each knot's cost to shared
-memory, then summed over the knots. Built with -fmad=false (`FLAGS`); the
-models' steps are K2's (csrc/step_models.cuh) with PyTorch's rounding of
-the cross products and its sine and cosine, and every sum in the order of
-PyTorch's CUDA reduction, so that at B > 1 xs, λ̄ and J equal the plain
-versions' bit for bit on the card: the closed loops, whose f32 fate is set
-by rounding, take the steps they took before (PERF.md). Every input is read
-through a row and a batch stride (`line_search.strides`): the batch-first
-model parameters are read in place.
+Design (csrc/rollout.cu): the rollout splits each model's step
+(csrc/step_models.cuh `drive` and `advance`), computes every knot's drive,
+what the inputs set alone, at once off the chain, a thread a (knot,
+scenario), and then runs each scenario's chain of advances from shared
+memory, x in registers, each xs row written coalesced along the batch; the
+pricing gives a knot of a scenario four lanes of a warp, lane q the
+inequality rows r ≡ q (mod 4) (torch_sum's accumulators, combined by
+shuffles), with the tile's Cu, cb and λ staged in shared memory by cp.async;
+the final cost sums a tile's knots in one block, the multiplier update runs
+a grid over (tile, knot group). Blocks are planned from B and the card's
+SMs (`plans` reads a build's plans). Built with -fmad=false (`FLAGS`); the
+models' steps are K2's with PyTorch's rounding of the cross products and
+its sine and cosine, and every sum in the order of PyTorch's CUDA
+reduction, so that at B > 1 xs, λ̄ and J equal the plain versions' bit for
+bit on the card: the closed loops, whose f32 fate is set by rounding, take
+the steps they took before (PERF.md). Every input is read through a row and
+a batch stride (`line_search.strides`): the batch-first model parameters
+are read in place.
 
 Which spec runs it: one tagged for K2 (`FleetModelSpec.line_search`) whose
 instantiation exists (`instantiation`), solving a problem without state rows
@@ -106,7 +114,35 @@ def bind(path) -> ctypes.CDLL:
     tags = tuple(lib.rollout_tags().decode().split())
     if tags != INSTANTIATIONS:
         raise RuntimeError(f"{path} has the instantiations {tags}, the wrapper {INSTANTIATIONS}")
+    bind_plans(lib)
     return lib
+
+
+def bind_plans(lib):
+    """Set the argument types of a build's `rollout_plans` (a build before
+    the plans has none: False)."""
+    if not hasattr(lib, "rollout_plans"):
+        return False
+    lib.rollout_plans.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                                  + [ctypes.c_void_p])
+    lib.rollout_plans.restype = ctypes.c_int
+    return True
+
+
+PLAN_KEYS = ("roll_S", "roll_threads", "roll_chunk", "roll_blocks", "roll_bytes", "price_S",
+             "price_rows", "price_knots", "price_groups", "price_blocks", "price_threads",
+             "price_bytes", "cu_at", "cb_at", "lam_at")
+
+
+def plans(lib, table, dims, outputs, dtype, sms=132):
+    """The launch plans a build makes of these tables (`check_rollout` or
+    `check_price`'s) for a card of ``sms`` SMs: {PLAN_KEYS: value}."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    err = lib.rollout_plans(int(dtype == torch.float64), *c_tables(table, outputs), *dims, sms,
+                            out)
+    if err != 0:
+        raise ValueError(f"no K9 instantiation for the flags {dims[-1]}")
+    return dict(zip(PLAN_KEYS, out))
 
 
 @functools.cache

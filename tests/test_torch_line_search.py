@@ -402,7 +402,9 @@ def _close(got, want, what):
 @pytest.mark.parametrize(
     "name,batch,horizon",
     [("standing", 5, 10), ("fixture", 3, 20), ("humanoid", 4, 6), ("convex", 5, 10),
-     ("convex_fixture", 3, 30), ("falling_cat", 4, 8)],
+     ("convex_fixture", 3, 30), ("falling_cat", 4, 8),
+     # the redesigned kernel's edges: one scenario at N = 1, N = 40 with nc = 6
+     ("standing", 1, 1), ("falling_cat", 2, 40)],
 )
 def test_k9_plain_versions_match_jax(name, batch, horizon):
     """K9's rollout, its pricing (J under drawn multipliers, half of them

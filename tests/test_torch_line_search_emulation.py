@@ -470,37 +470,85 @@ _K9_HARNESS = r"""
 #include "cuda_emulation.h"
 #include "rollout.cu"
 
-// with_model's fn: the launch's blocks one after another
+// with_model's fn: the launch's blocks one after another, planned as on an
+// H100 (132 SMs) or for `sms`
 template <typename T, bool PRICE>
 struct Run {
   Args<T> a;
+  const void* const* in;
+  const long long* st;
+  void* const* out;
+  int N, B, nc, flags, sms;
 
   template <typename M>
   int run() {
+    a = make_args<T, M>(in, st, out, N, B, nc, flags, sms);
     if constexpr (PRICE)
-      return emulate_blocks((a.B + PRICE_LANES - 1) / PRICE_LANES, PRICE_THREADS,
-                            price_kernel<T, M>, a);
+      return valid(a.price) ? emulate_blocks(a.price.blocks, a.price.threads, price_kernel<T, M>, a)
+                            : 3;
     else
-      return emulate_blocks((a.B + ROLL_THREADS - 1) / ROLL_THREADS, ROLL_THREADS,
-                            rollout_kernel<T, M>, a);
+      return valid(a.roll) ? emulate_blocks(a.roll.blocks, a.roll.threads, rollout_kernel<T, M>, a)
+                           : 3;
   }
 };
 template <typename T, bool PRICE>
 static int run(const void* const* in, const long long* st, void* const* out, int N, int B,
-               int n_feet, int nc, int flags) {
-  Run<T, PRICE> fn{make_args<T>(in, st, out, N, B, nc, flags)};
+               int n_feet, int nc, int flags, int sms) {
+  Run<T, PRICE> fn{{}, in, st, out, N, B, nc, flags, sms};
   const int err = with_model<AsTorch>(flags >> MODEL_SHIFT, n_feet, fn);
   return err < 0 ? 2 : err;
 }
 #define ENTRY(name, T, PRICE)                                                             \
   extern "C" int name(const void* const* in, const long long* st, void* const* out,       \
-                      int N, int B, int n_feet, int nc, int flags) {                      \
-    return run<T, PRICE>(in, st, out, N, B, n_feet, nc, flags);                           \
+                      int N, int B, int n_feet, int nc, int flags, int sms) {             \
+    return run<T, PRICE>(in, st, out, N, B, n_feet, nc, flags, sms);                      \
   }
 ENTRY(emulated_rollout_f32, float, false)
 ENTRY(emulated_rollout_f64, double, false)
 ENTRY(emulated_price_f32, float, true)
 ENTRY(emulated_price_f64, double, true)
+
+// drive then advance against step, on one state, input and constants, for
+// model `model` at n_feet feet with Ops (0: AsTorch, K9's; 1: Separate,
+// K2's): x (NX) is stepped both ways into x_step and x_split
+template <typename T, typename Ops>
+struct Split {
+  const T* x;
+  const T* u;
+  const T* m;
+  T h;
+  T* x_step;
+  T* x_split;
+
+  template <typename M>
+  int run() {
+    const Sm<T> model{m};
+    T d[M::D];
+    for (int i = 0; i < M::NX; ++i) x_step[i] = x_split[i] = x[i];
+    M::step(x_step, u, model, h);
+    M::drive(u, model, d);
+    M::advance(x_split, d, model, h);
+    return M::NX;
+  }
+};
+template <typename T>
+static int split(int separate, int model, int n_feet, const T* x, const T* u, const T* m, T h,
+                 T* x_step, T* x_split) {
+  if (separate) {
+    Split<T, Separate> fn{x, u, m, h, x_step, x_split};
+    return with_model<Separate>(model, n_feet, fn);
+  }
+  Split<T, AsTorch> fn{x, u, m, h, x_step, x_split};
+  return with_model<AsTorch>(model, n_feet, fn);
+}
+extern "C" int split_f32(int separate, int model, int n_feet, const float* x, const float* u,
+                         const float* m, float h, float* x_step, float* x_split) {
+  return split<float>(separate, model, n_feet, x, u, m, h, x_step, x_split);
+}
+extern "C" int split_f64(int separate, int model, int n_feet, const double* x, const double* u,
+                         const double* m, double h, double* x_step, double* x_split) {
+  return split<double>(separate, model, n_feet, x, u, m, h, x_step, x_split);
+}
 """
 
 
@@ -521,30 +569,36 @@ def emulated_k9(tmp_path_factory):
     for entry in ("rollout", "price"):
         for t in ("f32", "f64"):
             fn = getattr(lib, f"emulated_{entry}_{t}")
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
             fn.restype = ctypes.c_int
+    for t, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+        fn = getattr(lib, f"split_{t}")
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3 + [real] + [ctypes.c_void_p] * 2
+        fn.restype = ctypes.c_int
+    k9.bind_plans(lib)
     return lib
 
 
-def _k9_rollout(lib, spec, prob, us):
-    """The wrapper's rollout with the emulated kernel in place of the card's;
-    xs starts as NaN, so that anything left unwritten shows."""
+def _k9_rollout(lib, spec, prob, us, sms=132):
+    """The wrapper's rollout with the emulated kernel in place of the card's,
+    its blocks planned for ``sms`` SMs (an H100's 132 by default); xs starts
+    as NaN, so that anything left unwritten shows."""
     table, dims = k9.check_rollout(spec, prob, us)
     N, B = dims[:2]
     xs = torch.full((N + 1, spec.nx, B), float("nan"), dtype=us.dtype)
     fn = getattr(lib, f"emulated_rollout_{'f64' if us.dtype == torch.float64 else 'f32'}")
-    assert fn(*k9.c_tables(table, (xs, None, None)), *dims) == 0
+    assert fn(*k9.c_tables(table, (xs, None, None)), *dims, sms) == 0
     return xs
 
 
-def _k9_price(lib, spec, prob, xs, us, lam, rho, cost=True, lam_bar=True):
+def _k9_price(lib, spec, prob, xs, us, lam, rho, cost=True, lam_bar=True, sms=132):
     """The wrapper's pricing with the emulated kernel: (J or None, λ̄ or None)."""
     table, dims = k9.check_price(spec, prob, xs, us, lam, rho)
     N, B, _, nc, _ = dims
     J = torch.full((B,), float("nan"), dtype=xs.dtype) if cost else None
     bar = torch.full((N, nc, B), float("nan"), dtype=xs.dtype) if lam_bar else None
     fn = getattr(lib, f"emulated_price_{'f64' if xs.dtype == torch.float64 else 'f32'}")
-    assert fn(*k9.c_tables(table, (None, J, bar)), *dims) == 0
+    assert fn(*k9.c_tables(table, (None, J, bar)), *dims, sms) == 0
     return J, bar
 
 
@@ -678,3 +732,130 @@ def test_k9_emulated_spreads_an_overflowing_start_as_plain(emulated_k9, dtype):
     xs, J, bar = _k9_hold(emulated_k9, spec, prob, "overflowing starts")
     assert not bool(torch.isfinite(xs[..., [1, 4, 5]]).all(0).all(0).any())
     assert bool(torch.isfinite(xs[..., [0, 2, 3, 6]]).all()) and not bool(torch.isfinite(J).all())
+
+
+# The step split in two (csrc/step_models.cuh): `drive`, what the inputs set
+# alone, then `advance`, equal to `step` bit for bit for every model and both
+# roundings (Separate, K2's; AsTorch, K9's), so that K2's outputs do not move
+# and K9's chain takes each knot's drive computed off it.
+_MODELS = [(model, feet) for model in range(3) for feet in (1, 2, 3, 4)] + [(3, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("separate", [0, 1], ids=["as_torch", "separate"])
+@pytest.mark.parametrize("model,n_feet", _MODELS,
+                         ids=[f"{k9.INSTANTIATIONS[m]}-{f}" for m, f in _MODELS])
+def test_k9_drive_then_advance_is_the_step(emulated_k9, dtype, separate, model, n_feet):
+    np_t = np.float64 if dtype == torch.float64 else np.float32
+    rng = np.random.default_rng(100 * model + 10 * n_feet + separate)
+    fn = getattr(emulated_k9, f"split_{'f64' if dtype == torch.float64 else 'f32'}")
+    for trial in range(20):
+        x = rng.standard_normal(13).astype(np_t)
+        x[3 if model == 0 else 0:][:4] /= np.linalg.norm(x[3 if model == 0 else 0:][:4])
+        u = (50.0 * rng.standard_normal(12)).astype(np_t)
+        m = rng.standard_normal(28).astype(np_t)
+        m[-1] = 10.0 + abs(m[-1])  # the quaternion SRB's mass, the last constant
+        if model in (1, 2):
+            m[3 * n_feet + 9] = 12.0 + trial  # the Euler SRB's mass
+        got = [np.full(13, np.nan, np_t), np.full(13, np.nan, np_t)]
+        n = fn(separate, model, n_feet, *(a.ctypes.data for a in (x, u, m)), np_t(0.02),
+               *(g.ctypes.data for g in got))
+        assert n in (7, 12, 13)
+        assert np.isfinite(got[0][:n]).all()
+        assert got[0][:n].tobytes() == got[1][:n].tobytes(), f"trial {trial}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize(
+    "name,batch,horizon,sms",
+    [
+        ("standing", 1, 10, 132),     # one scenario of a block of 8
+        ("standing", 7, 10, 132),     # a ragged single tile
+        ("standing", 33, 10, 1),      # planned for one SM: tiles of 32, a ragged second
+        ("standing", 100, 10, 132),   # tiles of 8, a ragged last one
+        ("standing", 9, 1, 132),      # N = 1
+        ("standing", 33, 40, 1),      # N = 40 at 32 scenarios a block: f64 drives in two passes
+        ("falling_cat", 7, 40, 132),  # nc = 6, N = 40
+        ("falling_cat", 33, 40, 1),
+        ("convex", 100, 10, 132),
+    ],
+)
+def test_k9_emulated_plans(emulated_k9, dtype, name, batch, horizon, sms):
+    """The redesigned rollout and pricing at their plans' edges: ragged
+    tiles (B = 1, 7, 33, 100), blocks planned for an H100 and for one SM,
+    N = 1 and N = 40 (the rollout's drives in more than one pass where
+    shared memory holds fewer knots), nc = 6 (falling_cat: rows on four
+    lanes, two of them one row short), the multiplier update's knot groups;
+    J and λ̄ together, each alone, against the plain versions."""
+    spec, prob, _ = examples.line_search_case(name, batch, dtype, "cpu", horizon, 8)
+    us = prob.us_init
+    table, dims = k9.check_rollout(spec, prob, us)
+    plan = k9.plans(emulated_k9, table, dims, (us, None, None), dtype, sms)
+    assert plan["roll_blocks"] * plan["roll_S"] >= batch > (plan["roll_blocks"] - 1) * plan["roll_S"]
+    if (name, horizon, sms, dtype) == ("standing", 40, 1, torch.float64):
+        assert plan["roll_chunk"] < horizon, "the drives in two passes"
+    rtol = K9_RTOL[dtype]
+    xs = _k9_rollout(emulated_k9, spec, prob, us, sms)
+    _k9_close(xs, k9.open_loop_rollout_ref(spec, prob, us), "xs", rtol)
+    N, nc = us.shape[0], prob.Cu.shape[0]
+    rng = np.random.default_rng(7)
+    lam = torch.as_tensor(200.0 * rng.random((N, nc, batch)) * (rng.random((N, nc, batch)) < 0.5),
+                          dtype=dtype)
+    rho = torch.tensor(1.0, dtype=dtype)
+    ptable, pdims = k9.check_price(spec, prob, xs, us, lam, rho)
+    update = k9.plans(emulated_k9, ptable, pdims, (None, None, xs), dtype, sms)
+    assert update["price_groups"] == -(-N // update["price_knots"])
+    final = k9.plans(emulated_k9, ptable, pdims, (None, xs, None), dtype, sms)
+    assert final["price_groups"] == 1 and final["price_knots"] == N + 1
+    want = k9.price_ref(spec, prob, xs, us, lam, rho, True, True)
+    for cost, lam_bar in ((True, True), (True, False), (False, True)):
+        J, bar = _k9_price(emulated_k9, spec, prob, xs, us, lam, rho, cost, lam_bar, sms)
+        if cost:
+            _k9_close(J, want[0], "J", rtol, per_scenario=True)
+        if lam_bar:
+            _k9_close(bar, want[1], "λ̄", rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_k9_emulated_three_feet_per_knot_leaves_no_multipliers(emulated_k9, dtype):
+    """Three feet (nc = 18, not a multiple of four: lanes 2 and 3 take a row
+    fewer) with per-knot w and cb, Qdf, at B = 33 over one SM's tiles and an
+    H100's; then the final cost with no λ at ρ = 1e-30."""
+    spec, prob, _ = examples.line_search_case("standing", 33, dtype, "cpu", 10, 8)
+    spec, prob = _k9_feet(spec, prob, 3)
+    N, B = prob.us_init.shape[0], prob.us_init.shape[-1]
+    rng = np.random.default_rng(11)
+    cb = prob.cb[None].expand(N + 1, *prob.cb.shape).clone()
+    cb[:, 4::6][torch.from_numpy(rng.random((N + 1, 3, B)) < 0.3)] = 0.0
+    prob = prob._replace(cb=cb, Qdf=10.0 * prob.Qd,
+                         w=torch.as_tensor(1.0 + rng.random((N + 1, B)), dtype=dtype))
+    _k9_hold(emulated_k9, spec, prob, "three feet, per-knot leaves")
+    _k9_hold(emulated_k9, spec, prob, "three feet, no multipliers", rho=1e-30, draw_lam=False)
+    rtol = K9_RTOL[dtype]
+    xs = _k9_rollout(emulated_k9, spec, prob, prob.us_init, 1)
+    want = k9.price_ref(spec, prob, xs, prob.us_init, None, torch.tensor(1e-30, dtype=dtype))
+    J, _ = _k9_price(emulated_k9, spec, prob, xs, prob.us_init, None,
+                     torch.tensor(1e-30, dtype=dtype), True, False, sms=1)
+    _k9_close(J, want[0], "final cost, one SM", rtol, per_scenario=True)
+
+
+def test_k9_emulated_reads_what_shared_memory_cannot_hold_from_device_memory(emulated_k9):
+    """A horizon so long (N = 160, f64) that a tile's λ for every knot no
+    longer fits a block's shared memory: the final cost's plan reads λ from
+    device memory (Cu and cb staged), and agrees all the same."""
+    dtype = torch.float64
+    spec, prob, _ = examples.line_search_case("standing", 7, dtype, "cpu", 160, 8)
+    us = prob.us_init
+    N, nc, B = us.shape[0], prob.Cu.shape[0], us.shape[-1]
+    xs = k9.open_loop_rollout_ref(spec, prob, us)
+    rng = np.random.default_rng(9)
+    lam = torch.as_tensor(200.0 * rng.random((N, nc, B)) * (rng.random((N, nc, B)) < 0.5),
+                          dtype=dtype)
+    rho = torch.tensor(1.0, dtype=dtype)
+    table, dims = k9.check_price(spec, prob, xs, us, lam, rho)
+    plan = k9.plans(emulated_k9, table, dims, (None, xs, xs), dtype)
+    assert plan["lam_at"] == -1 and plan["cu_at"] >= 0 and plan["cb_at"] >= 0
+    want = k9.price_ref(spec, prob, xs, us, lam, rho, True, True)
+    J, bar = _k9_price(emulated_k9, spec, prob, xs, us, lam, rho, True, True)
+    _k9_close(J, want[0], "J", K9_RTOL[dtype], per_scenario=True)
+    _k9_close(bar, want[1], "λ̄", K9_RTOL[dtype])
