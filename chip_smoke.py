@@ -7,6 +7,7 @@
     python3 chip_smoke.py --kernels-only --k2-baseline OLD.cu   # and K2 held bit for bit and timed beside another
     python3 chip_smoke.py --kernels-only --k8-baseline OLD.cu[,OTHER.cu]   # and K8 the same
     python3 chip_smoke.py --kernels-only --k9-baseline OLD.cu   # and K9 held bit for bit and timed beside another
+    python3 chip_smoke.py --kernels-only --k10-baseline OLD.cu  # and K10 held bit for bit and timed beside another
     python3 chip_smoke.py --hardware-only  # phases 1-2, 14 and 15: the hardware loop, the fleet over ranks, the CLI; no result line
     python3 chip_smoke.py --graphs-only    # phases 1-2 and 16: the entry points' CUDA graphs against eager; no result line
 
@@ -133,7 +134,7 @@ non-zero before the last line):
    tick and no K1; K10, the walking pre (`phase_walking_pre`), against its
    plain version on the states of 300-tick walks on flat, slope and stairs
    and of the estimated fleet, f32 and f64 at B from 4096 to 1, every
-   element of every output equal, and timed;
+   element of every output equal, and timed at B=4096 and B=1;
    one
    B=4096 tick under `torch.cuda.set_sync_debug_mode("error")` (a tick never
    returns to the host); 10 f64 ticks at B=64 (a velocity spread, one robot
@@ -328,7 +329,13 @@ in turns with it, alone and with K1 after it. For K9 also
 and, with --k9-baseline, another source of it with the same C interface
 (the parent's), each held bit for bit against the shipped build (xs, λ̄ and
 J at K2's checked shapes, B=1 included) and timed in turns at K9_TIMED; its
-launch plans swept; each build's SASS counted by opcode. It prints no
+launch plans swept; each build's SASS counted by opcode. For K10 also
+(phase_k10_designs): builds at one, two and four warps a block
+(-DK10_WARPS) and, with --k10-baseline, another source of it with the same
+C interface (the parent's), each held bit for bit against the shipped build
+on every output at K10_CHECKED_B, f32 and f64, on the walks' states, and
+timed in turns at B = 1, 256 and 4096; their registers, stack, spill and
+blocks an SM, the shipped and the baseline SASS by opcode. It prints no
 result line.
 """
 
@@ -2977,6 +2984,49 @@ def _k10_walk_states(device):
     return states
 
 
+def _k10_case(state, dtype, b):
+    """One of `_k10_walk_states`' states cast to ``dtype`` and cut to its
+    first ``b`` robots: (carry, sp, joy, gf, keywords of the pre)."""
+    from quaternion_mpc_tpu_torch.utils.tree import tree_map
+
+    _, carry, sp, joy, est = state
+    cast = lambda t: t.to(dtype) if t.is_floating_point() else t
+    cut = (lambda t: cast(t[:b])) if b < carry.plant.pos.shape[0] else cast
+    c, s, j = (tree_map(cut, x) for x in (carry, sp, joy))
+    kw = dict(horizon=HORIZON, gait_freq=2.2, per_knot_contacts=True,
+              est_pos=None if est is None else cut(est[0]),
+              est_vel=None if est is None else cut(est[1]))
+    return c, s, j, torch.full((), 2.2, dtype=dtype, device=c.plant.pos.device), kw
+
+
+def _k10_registers(kbuild, lib):
+    """{dtype name: [registers, stack bytes, spill store bytes, spill load
+    bytes]} of a K10 build, as ptxas reported."""
+    return {("float32" if "IfE" in r["name"] else "float64"):
+            [r["registers"], r["stack"], r["stores"], r["loads"]]
+            for r in kbuild.ptxas_report(lib)}
+
+
+def _k10_launcher(lib, pat, c, s, j, gf, kw):
+    """fn() that launches ``lib``'s K10 once on these inputs into outputs
+    made once and returns its two output buffers (float, int32); the tables
+    are made once too, so that fn() is the launch alone."""
+    from quaternion_mpc_tpu_torch.kernels import walking_pre as k10
+
+    dtype = c.plant.pos.dtype
+    table, lead, sizes = k10.check(c, s, j, pat, gf, **_k10_geometry(s, c), **kw)
+    out, out_int, bufs = k10.new_outputs(lead, sizes, dtype, c.plant.pos.device)
+
+    def fn():
+        err = k10.launch(lib, table, sizes, out, out_int, dtype,
+                         torch.cuda.current_stream().cuda_stream)
+        _check(err == 0, f"K10 launch failed with CUDA error {err}")
+        return bufs
+
+    fn.table = table  # the copies live as long as fn
+    return fn
+
+
 def phase_walking_pre(device):
     """K10 (`kernels.walking_pre`, csrc/walking_pre.cu) against the plain
     version (`runtime.step._walking_pre_plain`) on the card, f32 and f64
@@ -2985,31 +3035,26 @@ def phase_walking_pre(device):
     every element of every output equal (`_k10_hold`); the elements that
     differ and the largest error printed.
     The fleet estimated step (kf_type 0, 1, 2) at B=64 launches K10 once a
-    tick. K10 timed by CUDA events around a replayed graph of 50 launches
-    beside its bound (`kernels.walking_pre.work`), the plain version by
-    events around eager calls; registers and spills as ptxas reported.
+    tick. K10 timed at B=4096 and B=1 by CUDA events around a replayed graph
+    of 50 launches beside its bound (`kernels.walking_pre.work`), the plain
+    version by events around eager calls; registers, stack and spills as
+    ptxas reported.
     Returns a dict for the kernels line."""
     from quaternion_mpc_tpu_torch import examples
     from quaternion_mpc_tpu_torch.kernels import build as kbuild
     from quaternion_mpc_tpu_torch.kernels import walking_pre as k10
     from quaternion_mpc_tpu_torch.runtime import step as rt
-    from quaternion_mpc_tpu_torch.utils.tree import tree_map
 
     t0 = time.perf_counter()
     pat = rt._pattern_on_device(None)(device)
     states = _k10_walk_states(device)
     differ, worst = {}, {"float32": 0.0, "float64": 0.0}
     worst_abs = dict(worst)
-    for what, carry, sp, joy, est in states:
+    for state in states:
+        what = state[0]
         for dtype in (torch.float32, torch.float64):
-            cast = lambda t: t.to(dtype) if t.is_floating_point() else t
             for b in K10_CHECKED_B:
-                cut = (lambda t: cast(t[:b])) if b < CLOSED_LOOP_B else cast
-                c, s, j = (tree_map(cut, x) for x in (carry, sp, joy))
-                kw = dict(horizon=HORIZON, gait_freq=2.2, per_knot_contacts=True,
-                          est_pos=None if est is None else cut(est[0]),
-                          est_vel=None if est is None else cut(est[1]))
-                gf = torch.full((), 2.2, dtype=dtype, device=device)
+                c, s, j, gf, kw = _k10_case(state, dtype, b)
                 got = k10.walking_pre(c, s, j, pat, gf, **_k10_geometry(s, c), **kw)
                 want = rt._walking_pre_plain(c, s, j, pat, gf, **kw)
                 tag = f"{what} {str(dtype)[6:]} B={b}"
@@ -3031,18 +3076,12 @@ def phase_walking_pre(device):
                (eopts.al_iterations * eopts.ilqr_iterations, 0),
                f"estimated fleet kf_type {kf} B={K10_KF_B}", k10=1)
 
-    # timing at the fleet's shape, on the flat walk's last state
-    _, carry, sp, joy, _ = states[len(K10_SNAPSHOTS) - 1]
+    # timing at the fleet's shape and at one robot, on the flat walk's last state
     timing = {}
-    lib = k10.build()
-    regs = {("float32" if "IfE" in r["name"] else "float64"): [r["registers"], r["stack"],
-                                                              r["stores"]]
-            for r in kbuild.ptxas_report(lib)}
-    for dtype in (torch.float32, torch.float64):
-        cast = lambda t: t.to(dtype) if t.is_floating_point() else t
-        c, s, j = (tree_map(cast, x) for x in (carry, sp, joy))
-        gf = torch.full((), 2.2, dtype=dtype, device=device)
-        kw = dict(horizon=HORIZON, gait_freq=2.2, per_knot_contacts=True)
+    regs = _k10_registers(kbuild, k10.build())
+    for dtype, b in ((torch.float32, CLOSED_LOOP_B), (torch.float64, CLOSED_LOOP_B),
+                     (torch.float32, 1), (torch.float64, 1)):
+        c, s, j, gf, kw = _k10_case(states[len(K10_SNAPSHOTS) - 1], dtype, b)
         geo = _k10_geometry(s, c)
         ms = _graph_time(lambda: k10.walking_pre(c, s, j, pat, gf, **geo, **kw), reps=50) * 1e3
         host_ms = _enqueue_time(lambda: k10.walking_pre(c, s, j, pat, gf, **geo, **kw)) * 1e3
@@ -3050,7 +3089,7 @@ def phase_walking_pre(device):
                                reps=3) * 1e3
         work = k10.work(c, s, j, pat, gf, **geo, **kw)
         bound_ms, bound_by = _bound(work, dtype)
-        tag = f"{str(dtype)[6:]} B={CLOSED_LOOP_B}"
+        tag = f"{str(dtype)[6:]} B={b}"
         timing[tag] = {"ms": ms, "host_enqueue_ms": host_ms, "plain_ms": plain_ms,
                        "bound_ms": bound_ms, "bound_by": bound_by, "bytes": work["bytes"],
                        "registers_stack_spill": regs.get(str(dtype)[6:])}
@@ -3060,6 +3099,135 @@ def phase_walking_pre(device):
               f"stack, spill {regs.get(str(dtype)[6:])}")
     print(f"[K10] phase wall {time.perf_counter() - t0:.1f} s")
     return dict(differ=differ, worst=worst, worst_abs=worst_abs, timing=timing, registers=regs)
+
+
+# --kernels-only: K10 at other block shapes (-DK10_WARPS) and, with
+# --k10-baseline, another source of it with the same C interface (the
+# parent's), each held bit for bit against the shipped build on every output
+# at K10_CHECKED_B, f32 and f64, on `_k10_walk_states`' states, and timed in
+# turns with it at K10_TIMED_B on the flat walk's last state.
+K10_TIMED_B = (1, 256, CLOSED_LOOP_B)
+K10_WARPS_SWEPT = (1, 2, 4)
+
+
+def _k10_bits_differ(got, want) -> int:
+    """Elements of two lists of buffers whose bits differ."""
+    ints = {4: torch.int32, 8: torch.int64}
+    return sum(int((g.view(ints[g.element_size()]) != w.view(ints[w.element_size()])).sum())
+               for g, w in zip(got, want))
+
+
+def _k10_sass(kbuild, lib):
+    """cuobjdump's SASS of a K10 build (the whole dump beside its library,
+    `.sass`): {dtype name: {"instructions": n, opcode: count, "calls": [the
+    CALL instructions' text]}}."""
+    cuobjdump = pathlib.Path(kbuild._nvcc()).with_name("cuobjdump")
+    dump = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    lib.with_suffix(".sass").write_text(dump)
+    kernels, name = {}, None
+    for line in dump.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = ("float32" if "IfE" in m[1] else "float64") if "kernel" in m[1] else None
+            if name:
+                kernels[name] = {"instructions": 0, "calls": []}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)(.*?);", line)
+        if name and m:
+            op = m[1].split(".")[0]
+            kernels[name]["instructions"] += 1
+            kernels[name][op] = kernels[name].get(op, 0) + 1
+            if op == "CALL":
+                kernels[name]["calls"].append(f"{m[1]}{m[2]}".strip())
+    return kernels
+
+
+def phase_k10_designs(device, baseline=None):
+    """--kernels-only: K10 built at each of K10_WARPS_SWEPT warps a block
+    and, given ``baseline``, that source (as K10 is built: its FLAGS); what
+    ptxas reported of each and the blocks of each resident on an SM; each
+    held bit for bit against the shipped build (every element of both output
+    buffers) at K10_CHECKED_B, f32 and f64, on `_k10_walk_states`' states;
+    then timed in turns with it (shipped, the others, then back, twice) by
+    events around a replayed graph of 50 launches at K10_TIMED_B, f32 and
+    f64, beside the bound (its share of the median)."""
+    from quaternion_mpc_tpu_torch.kernels import build as kbuild
+    from quaternion_mpc_tpu_torch.kernels import walking_pre as k10
+    from quaternion_mpc_tpu_torch.runtime import step as rt
+
+    builds = {f"warps={w}": lambda w=w: kbuild.build(k10.SOURCE, k10.FLAGS + (f"-DK10_WARPS={w}",))
+              for w in K10_WARPS_SWEPT}
+    if baseline:
+        builds["parent"] = lambda: kbuild.build(pathlib.Path(baseline).resolve(), k10.FLAGS)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        paths = {"shipped": k10.build(),
+                 **dict(zip(builds, pool.map(lambda build: build(), builds.values())))}
+    print(f"[K10] {len(builds)} more builds in {time.perf_counter() - t0:.1f} s")
+    libs = {"shipped": k10._lib(), **{name: k10.bind(paths[name]) for name in builds},
+            "shipped, loaded again": k10.bind(paths["shipped"])}
+    paths["shipped, loaded again"] = paths["shipped"]
+    for name, lib in libs.items():
+        blocks = {}
+        if hasattr(lib, "walking_pre_occupancy"):
+            lib.walking_pre_occupancy.argtypes = [ctypes.c_int] * 3
+            lib.walking_pre_occupancy.restype = ctypes.c_int
+            blocks = {dt: lib.walking_pre_occupancy(f64, 100, 100)
+                      for dt, f64 in (("float32", 0), ("float64", 1))}
+        print(f"[K10] {name}: registers, stack, spill stores, spill loads "
+              f"{_k10_registers(kbuild, paths[name])}; blocks an SM at windows of 100 "
+              f"{blocks or 'not reported by this source'}")
+    for name in ("shipped", *(["parent"] if baseline else [])):
+        for dt, ops in sorted(_k10_sass(kbuild, paths[name]).items()):
+            top = sorted(((n, op) for op, n in ops.items() if op not in ("instructions", "calls")),
+                         reverse=True)
+            print(f"[K10] SASS {name} {dt}: {ops['instructions']} instructions; "
+                  + ", ".join(f"{op} {n}" for n, op in top[:20])
+                  + f"; calls: {', '.join(sorted(set(ops['calls']))) or 'none'}")
+
+    pat = rt._pattern_on_device(None)(device)
+    states = _k10_walk_states(device)
+    others = [name for name in libs if name != "shipped"]
+    differ = {name: [0, 0, 0, 0] for name in others}  # elements, of, launches off, launches
+    for state in states:
+        for dtype in (torch.float32, torch.float64):
+            for b in K10_CHECKED_B:
+                c, s, j, gf, kw = _k10_case(state, dtype, b)
+                want = [t.clone() for t in _k10_launcher(libs["shipped"], pat, c, s, j, gf, kw)()]
+                for name in others:
+                    n = _k10_bits_differ(_k10_launcher(libs[name], pat, c, s, j, gf, kw)(), want)
+                    d = differ[name]
+                    d[0] += n
+                    d[1] += sum(t.numel() for t in want)
+                    d[2] += n > 0
+                    d[3] += 1
+                    if n:
+                        print(f"[K10] bits: {name} {state[0]} {str(dtype)[6:]} B={b}: {n} "
+                              f"elements differ")
+    torch.cuda.synchronize()
+    for name, (n, of, off, launches) in differ.items():
+        print(f"[K10] bits: {name} against the shipped build over {launches} launches (every "
+              f"output; K10_CHECKED_B, f32 and f64, the walks' and the estimated fleet's "
+              f"states): {n} of {of:,} elements differ, in {off} launches")
+    _check(all(d[0] == 0 for d in differ.values()),
+           f"K10: a build's outputs differ from the shipped build's: {differ}")
+
+    names = ["shipped", *others]
+    for dtype in (torch.float32, torch.float64):
+        for b in K10_TIMED_B:
+            c, s, j, gf, kw = _k10_case(states[len(K10_SNAPSHOTS) - 1], dtype, b)
+            fns = {name: _k10_launcher(libs[name], pat, c, s, j, gf, kw) for name in names}
+            times = {name: [] for name in names}
+            for name in (names + names[::-1]) * 2:
+                times[name].append(_graph_time(fns[name], reps=50) * 1e3)
+            bound_ms, bound_by = _bound(k10.work(c, s, j, pat, gf, **_k10_geometry(s, c), **kw),
+                                        dtype)
+            print(f"[K10] designs {str(dtype)[6:]} B={b}, in turns forward / backward, twice "
+                  f"(bound {bound_ms:.5f} ms by {bound_by}): " + "; ".join(
+                      f"{name} {' / '.join(f'{t:.4f}' for t in times[name])} ms "
+                      f"({100 * bound_ms / statistics.median(times[name]):.2f}% of the bound)"
+                      for name in names))
 
 
 # The estimated fleet (`make_fleet_estimated_step`): the bench's noise levels
@@ -6259,7 +6427,7 @@ def main(argv) -> int:
     baselines = dict(zip(argv[1::2], argv[2::2]))
     kernels_only = (argv[:1] == ["--kernels-only"] and len(argv) % 2 == 1
                     and set(baselines) <= {"--k7-baseline", "--k2-baseline", "--k8-baseline",
-                                           "--k1-baseline", "--k9-baseline"}
+                                           "--k1-baseline", "--k9-baseline", "--k10-baseline"}
                     and len(baselines) == len(argv) // 2)
     workers = {**WORKERS, **ACT_WORKERS, **HW_WORKERS, "hardware-threaded": phase_hw_threaded,
                "hardware-peer-profile": _worker_hw_peer_profile,
@@ -6267,7 +6435,7 @@ def main(argv) -> int:
     worker = argv[1] if len(argv) == 2 and argv[0] == "--worker" and argv[1] in workers else None
     if argv and not (kernels_only or worker or hardware_only or graphs_only):
         print("usage: chip_smoke.py [--kernels-only [--k1-baseline SOURCE] [--k7-baseline SOURCE] "
-              "[--k2-baseline SOURCE] [--k9-baseline SOURCE] "
+              "[--k2-baseline SOURCE] [--k9-baseline SOURCE] [--k10-baseline SOURCE] "
               "[--k8-baseline SOURCE[,SOURCE...]] "
               "| --hardware-only | --graphs-only | "
               "--worker "
@@ -6347,6 +6515,7 @@ def main(argv) -> int:
         phase_expansions_timing(device)
         phase_rollout_timing(device)
         phase_k9_designs(device, baselines.get("--k9-baseline"))
+        phase_k10_designs(device, baselines.get("--k10-baseline"))
         phase_k2_designs(device, baselines.get("--k2-baseline"))
         if "--k8-baseline" in baselines:
             phase_k8_designs(device, baselines["--k8-baseline"])
@@ -6661,10 +6830,12 @@ def main(argv) -> int:
         "route": "cuda",
         "source": "quaternion_mpc_tpu_torch/csrc/walking_pre.cu",
         "replaces": "quaternion_mpc_tpu/runtime/step.py:1516",
-        "design": ("a warp a scenario: every lane runs the scenario's chain, lane l its leg l "
-                   "mod 4, the legs' values by shuffles; the window buffers copied, updated and "
-                   "summed by the whole warp, coalesced, in PyTorch's reduction order; cuBLAS's "
-                   "order for each einsum product; -fmad=false"),
+        "design": ("four lanes a scenario, eight a warp: lane g its leg g, the scenario's "
+                   "chain in the group with its divisions and half-angle sines dealt over the "
+                   "lanes; every input read before the first store, the window buffers staged "
+                   "by cp.async, written out coalesced and summed over the group's lanes in "
+                   "PyTorch's reduction order; cuBLAS's order for each einsum product; "
+                   "-fmad=false"),
         # every walking path of this process, each driven with the count set
         # to 0 just before and read just after (exactly one a tick)
         "launches": sum(K10_LAUNCHES.values()),

@@ -1,9 +1,9 @@
 """Where K1 (the fleet Riccati sweep), K4 (the associative-scan backward
-pass), K8 (the knot expansions) and K9 (the open-loop rollout and the AL
-pricing) spend their clocks on the card.
+pass), K8 (the knot expansions), K9 (the open-loop rollout and the AL
+pricing) and K10 (the walking tick's pre) spend their clocks on the card.
 
-    python3 k1_phase_clocks.py          # all four
-    python3 k1_phase_clocks.py k1       # or k4, or k8, or k9
+    python3 k1_phase_clocks.py          # all five
+    python3 k1_phase_clocks.py k1       # or k4, k8, k9 or k10
 
 K1: builds `quaternion_mpc_tpu_torch/csrc/riccati_sweep.cu` a second time with
 -DK1_PHASE_CLOCKS, which makes lane 0 of the first scenario of the middle
@@ -44,6 +44,14 @@ of them) and the whole; for the pricing the copies issued, the weights and
 the first knot's loads with the wait for the copies, the knots (the state
 and input sums, the inequality's rows), the barrier and the sum over the
 knots.
+
+K10: builds `csrc/walking_pre.cu` with -DK10_PHASE_CLOCKS, which makes lane 0
+of the middle scenario stamp clock64() after each stage of the walking
+pre (K10_STAGES), launches it on the flat walk's state after 300 ticks
+(`chip_smoke._k10_walk_states`) at K10_SHAPES, holds its outputs bit for bit
+against the shipped build's, and prints the clocks of each stage, the
+shipped build's time there (events around a replayed graph of 50 launches)
+and its blocks resident on an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 
 A stamp itself costs clocks (two stamps back to back are printed), so read
 the phases against each other, not as absolute times; a kernel's time is
@@ -249,10 +257,78 @@ def k9_clocks(device) -> None:
                   + ", ".join(f"{p} {int(c)}" for p, c in zip(chip_smoke.K9_PRICE_PHASES, parts)))
 
 
+# K10: (dtype, B) on the flat walk's state after 300 ticks
+K10_SHAPES = ((torch.float32, 1), (torch.float32, 256), (torch.float32, 4096),
+              (torch.float64, 1), (torch.float64, 256), (torch.float64, 4096))
+# the stamps of lane 0 of the middle scenario (csrc/walking_pre.cu
+# K10_STAMP): what ends at each stamp after the first
+K10_STAGES = ("the input loads and the windows' copies issued", "attitude and Rz",
+              "the goal update", "the leg (IK, J⁻¹)", "Raibert and snap", "the FSM and swing",
+              "the legs' stores and the schedule",
+              "the staged windows' wait and the goal's new values", "vel filter 0",
+              "pos filter 0", "vel filter 1", "pos filter 1", "vel filter 2", "pos filter 2",
+              "the goal's buffers written", "the ground height and the plane fit",
+              "the angle filter and its buffer written",
+              "the means' divisions and the pitched attitude", "the final stores")
+
+
+def k10_clocks(device) -> None:
+    import concurrent.futures
+
+    import chip_smoke
+    from quaternion_mpc_tpu_torch.kernels import build as kbuild
+    from quaternion_mpc_tpu_torch.kernels import expansions as k8
+    from quaternion_mpc_tpu_torch.kernels import line_search as k2
+    from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
+    from quaternion_mpc_tpu_torch.kernels import rollout as k9
+    from quaternion_mpc_tpu_torch.kernels import walking_pre as k10
+    from quaternion_mpc_tpu_torch.runtime import step as rt
+
+    # the walks' kernels and the instrumented build, one nvcc each, at once
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        stamped = pool.submit(kbuild.build, k10.SOURCE, k10.FLAGS + ("-DK10_PHASE_CLOCKS",))
+        list(pool.map(lambda m: m.build(), (rs, k2, k8, k9, k10)))
+        lib = k10.bind(stamped.result())
+    lib.walking_pre_clock_scenario.argtypes = [ctypes.c_longlong]
+    lib.walking_pre_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.walking_pre_clock_scenario.restype = lib.walking_pre_clocks.restype = ctypes.c_int
+    shipped = k10._lib()
+    shipped.walking_pre_occupancy.argtypes = [ctypes.c_int] * 3
+    shipped.walking_pre_occupancy.restype = ctypes.c_int
+    print(f"[clocks] K10 shipped build: registers, stack, spill stores, spill loads "
+          f"{chip_smoke._k10_registers(kbuild, k10.build())}")
+    chip_smoke._k10_sass(kbuild, stamped.result())  # the stamped build's SASS beside it
+    pat = rt._pattern_on_device(None)(device)
+    state = chip_smoke._k10_walk_states(device)[len(chip_smoke.K10_SNAPSHOTS) - 1]
+    for dtype, batch in K10_SHAPES:
+        c, s, j, gf, kw = chip_smoke._k10_case(state, dtype, batch)
+        ours = chip_smoke._k10_launcher(shipped, pat, c, s, j, gf, kw)
+        want = [t.clone() for t in ours()]
+        fn = chip_smoke._k10_launcher(lib, pat, c, s, j, gf, kw)
+        if lib.walking_pre_clock_scenario(batch // 2) != 0:
+            raise RuntimeError("setting the stamping scenario failed")
+        for _ in range(3):
+            got = fn()
+        torch.cuda.synchronize()
+        if chip_smoke._k10_bits_differ(got, want):
+            raise AssertionError("the instrumented build disagrees with the kernel")
+        stamps = np.zeros(len(K10_STAGES) + 1, dtype=np.int64)
+        if lib.walking_pre_clocks(stamps.ctypes.data, len(stamps)) != 0:
+            raise RuntimeError("reading the stamps failed")
+        ms = chip_smoke._graph_time(ours, reps=50) * 1e3
+        w, wt = (c.goal.vel_filter.buf.shape[-1], c.terrain_est.angle_filter.buf.shape[-1])
+        blocks = shipped.walking_pre_occupancy(int(dtype == torch.float64), w, wt)
+        parts = np.diff(stamps)
+        print(f"[clocks] K10 {str(dtype)[6:]} B={batch} (scenario {batch // 2}, lane 0): "
+              f"{stamps[-1] - stamps[0]} clocks in all; the shipped build {ms:.4f} ms, "
+              f"{blocks} blocks an SM: "
+              + ", ".join(f"{name} {int(p)}" for name, p in zip(K10_STAGES, parts)))
+
+
 def main(argv) -> int:
-    which = set(argv) or {"k1", "k4", "k8", "k9"}
-    if not which <= {"k1", "k4", "k8", "k9"}:
-        print("usage: k1_phase_clocks.py [k1] [k4] [k8] [k9]", file=sys.stderr)
+    which = set(argv) or {"k1", "k4", "k8", "k9", "k10"}
+    if not which <= {"k1", "k4", "k8", "k9", "k10"}:
+        print("usage: k1_phase_clocks.py [k1] [k4] [k8] [k9] [k10]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("k1_phase_clocks: no CUDA device", file=sys.stderr)
@@ -274,6 +350,8 @@ def main(argv) -> int:
         k8_clocks(device)
     if "k9" in which:
         k9_clocks(device)
+    if "k10" in which:
+        k10_clocks(device)
     if "k1" not in which:
         return 0
     lib = ctypes.CDLL(str(kbuild.build(rs.SOURCE, ("-DK1_PHASE_CLOCKS",))))

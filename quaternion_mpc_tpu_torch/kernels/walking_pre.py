@@ -12,9 +12,14 @@ What bounds it on the H100: bytes (`work`): every input read once, every
 output written once, of which the goal's two 3-channel window filters and
 the terrain's angle filter (100 slots each) are most.
 
-Design (csrc/walking_pre.cu): a warp a scenario; every lane runs the
-scenario's chain, lane l its leg l mod 4, the window buffers copied, updated
-and summed by the whole warp, coalesced. Built with -fmad=false (`FLAGS`),
+Design (csrc/walking_pre.cu): four lanes a scenario, eight scenarios a
+warp. Every input is read before the first store: a scenario's values into
+registers, the window buffers of a warp's scenarios into shared memory by
+cp.async while the chain runs, written out from there coalesced and summed
+from there over the group's four lanes in PyTorch's reduction order. Lane g
+of a group runs leg g (IK, J⁻¹, foothold, FSM, swing, its contact schedule);
+the scenario's chain runs in the group, its divisions and half-angle
+cosines and sines dealt over the lanes. Built with -fmad=false (`FLAGS`),
 its operations round as the plain version's do on the card: its libdevice
 functions, PyTorch's reduction order for each sum and norm over a last axis,
 and cuBLAS's order for each einsum product at a fleet's size, so that the
@@ -56,6 +61,7 @@ _ENTRY = {torch.float32: "walking_pre_f32", torch.float64: "walking_pre_f64"}
 FLAGS = ("-fmad=false",)
 LEGS = 4
 MAX_WINDOW = 127  # the reduction order the kernel follows holds below 128 slots
+MAX_SEG = 4  # a leg's pattern segments the kernel holds (gait.schedule.MAX_SEG)
 
 # The input table, in the order of csrc/walking_pre.cu enum Input: (name,
 # the scenario's shape, kind: "f" the state's dtype, "i" int32, "b" bool,
@@ -241,8 +247,8 @@ def check(carry, sp, joy, pat, gf, *, rho_fix, default_rel, horizon, gait_freq,
                          f"{sizes['wt']}")
     if goal.pos_filter.buf.shape[-1] != sizes["w"]:
         raise ValueError("K10 takes the goal's two filters with one window")
-    if sizes["S"] < 1:
-        raise ValueError("K10 takes patterns of one segment or more")
+    if not 1 <= sizes["S"] <= MAX_SEG:
+        raise ValueError(f"K10 takes patterns of 1 to {MAX_SEG} segments, got {sizes['S']}")
     leaves = (
         ps.pos, ps.quat, ps.vel, ps.omega,
         ps.pos if est_pos is None else est_pos, ps.vel if est_vel is None else est_vel,
@@ -377,11 +383,10 @@ walking_pre.launches = 0
 # Floating-point operations of one scenario in the device code, counted by
 # function from csrc/walking_pre.cu (each add, subtract, multiply, divide,
 # square root and library function (sin, cos, atan2, asin, acos, fmod,
-# floor) once, a fused multiply-add twice; each leg's work once, though
-# eight lanes repeat it, and the scenario's chain once, though every lane
-# repeats it): the attitude, Euler angles and Rz 45; a leg's body-frame
-# foot, IK, J, J⁻¹ and dq 150, its foothold and snap 45, its FSM 40, its
-# swing curve 110 (the quintic's three axes; the clearing profile is
+# floor) once, a fused multiply-add twice; the scenario's chain once, though
+# its four lanes repeat it): the attitude, Euler angles and Rz 45; a leg's
+# body-frame foot, IK, J, J⁻¹ and dq 150, its foothold and snap 45, its FSM
+# 40, its swing curve 110 (the quintic's three axes; the clearing profile is
 # fewer); the contact schedule 6 an entry; the goal update 120; the plane
 # fit and dihedral angle 150; the ground height 15; the pitched attitude
 # 45; a window filter's update 2 a slot.

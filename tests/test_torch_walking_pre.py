@@ -15,11 +15,17 @@ f32, its inputs left unchanged.
 
 Cases: mixed flat, slope and stairs worlds with feet and footholds near the
 stairs' riser edges; the contact schedule per knot and not; an estimate in
-place of the plant's position and velocity; one unbatched robot; mid-walk
+place of the plant's position and velocity; one unbatched robot; B=19 (the
+kernel's groups of eight scenarios a warp with a ragged tail); mid-walk
 gait states in which every transition of the FSM fires (stance to swing, a
 swing's end, a segment wrap, a latched climb to a higher tread); window
 filters empty, part full, full and wrapping (their idx and count set
-directly); the sinusoidal attitude mode.
+directly); the sinusoidal attitude mode. Beside them, the device code alone:
+every output written and no input at B = 1, 6 and 19; windows short enough
+that a scenario's four lanes share fewer than four reduction lanes, held
+against `utils/filters.window_update`; window buffers laid out with a gap
+between scenarios or off a 16-byte boundary (the copies' other paths), bit for
+bit against the common layout.
 
 Bounds: every output to 1e-12 of its scale in f64 and 1e-6 in f32 (integer
 and flag outputs exactly), except what follows the terrain's plane fit (its
@@ -224,6 +230,13 @@ CASES = [
     ("estimate", 6, 2, True, True, False),
     ("fsm", 6, 3, True, False, True),
     ("one_robot", None, 4, True, True, False),
+    # three full groups of eight scenarios and a tail of three; every filter's
+    # reduction 32 lanes wide (B=6's terrain filter is 64). At most seeds 19
+    # draws put some leg at its workspace's edge (the knee folded to -pi or
+    # stretched straight), where J⁻¹ magnifies rounding past these bounds
+    # (seeds 5-13 and 15: joint_vel 1e-12 to 6e-12 of scale apart, port and
+    # JAX; f32 1e-4); seed 14 puts none there
+    ("nineteen", 19, 14, True, True, False),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -426,3 +439,146 @@ def test_work_counts_every_input_once(case):
     # the three window buffers read and written, 8 bytes a slot
     assert work["bytes"] > B * 2 * 8 * 7 * WINDOW
     assert work["flops"] > 0
+
+
+def _fill_launch(lib, table, sizes, out, out_int, bufs, dtype):
+    """One emulated launch into outputs filled with NaN / −7 first."""
+    bufs[0].fill_(float("nan"))
+    bufs[1].fill_(-7)
+    assert k10.launch(lib, table, sizes, out, out_int, dtype) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("B", [1, 6, 19])
+def test_emulated_kernel_writes_every_output_and_no_input(emulated, B, dtype):
+    """Every element of both output buffers is written (none left NaN where
+    the plain version is finite, none left −7) and no input changes, at one
+    robot, one ragged group and three groups with a tail."""
+    case = _make_case(f"B{B}", B, 10 + B, True, B != 6, False)
+    (carry, sp, joy, pat), kw = _cast(case["inputs"], case["kw"], dtype)
+    leaves = [t for tree in (carry, sp, joy, pat, kw["est_pos"], kw["est_vel"])
+              for t in tree_leaves(tree)]
+    before = [t.clone() for t in leaves]
+    table, lead, sizes = k10.check(carry, sp, joy, pat, _gf(dtype), **_geometry(carry, sp), **kw)
+    out, out_int, bufs = k10.new_outputs(lead, sizes, dtype, torch.device("cpu"))
+    _fill_launch(emulated, table, sizes, out, out_int, bufs, dtype)
+    got = k10.assemble(carry, out, out_int, kw["est_pos"], kw["est_vel"], True)
+    want = trt._walking_pre_plain(carry, sp, joy, pat, _gf(dtype), **kw)
+    for (path, g), (_, w) in zip(_named_leaves(tuple(got)), _named_leaves(tuple(want))):
+        if g.is_floating_point():
+            assert torch.equal(torch.isnan(g), torch.isnan(w)), path
+    assert not bool((bufs[1] == -7).any())
+    for b, a in zip(before, leaves):
+        assert torch.equal(b, a), "the kernel wrote into an input"
+
+
+def _short_windows(carry, w, wt):
+    """The carry with its goal filters cut to ``w`` slots and its terrain
+    filter to ``wt`` (idx and count brought inside them)."""
+    def cut(state, n):
+        return state._replace(buf=state.buf[..., :n].contiguous(), idx=state.idx % n,
+                              count=torch.clamp(state.count, max=n))
+
+    goal = carry.goal._replace(vel_filter=cut(carry.goal.vel_filter, w),
+                               pos_filter=cut(carry.goal.pos_filter, w))
+    terr = carry.terrain_est._replace(angle_filter=cut(carry.terrain_est.angle_filter, wt))
+    return carry._replace(goal=goal, terrain_est=terr)
+
+
+def _hold_filter(old, new, mean, rows):
+    """A filter's new state from the kernel against `utils/filters.
+    window_update` of the value the kernel pushed (its new buffer at the old
+    idx), exactly; its mean (``mean``) within 1e-12 of scale; on ``rows``."""
+    from quaternion_mpc_tpu_torch.utils import filters
+
+    pushed = torch.gather(new.buf, -1, old.idx[..., None].long())[..., 0]
+    state, avg = filters.window_update(old, pushed)
+    for a, b in zip(state, new):
+        assert torch.equal(a[rows], b[rows])
+    scale = avg[rows].abs().max().clamp(min=1e-300)
+    assert float((avg[rows] - mean[rows]).abs().max() / scale) <= 1e-12
+
+
+@pytest.mark.parametrize("windows", [(3, 2), (1, 20)], ids=["w3_wt2", "w1_wt20"])
+def test_emulated_kernel_short_windows(emulated, windows):
+    """Windows of 1-3 slots (PyTorch's reduction 1 or 2 lanes wide: fewer
+    than a scenario's four lanes) and of 20 (16 lanes): the kernel against
+    the plain version, and the goal's velocity and position filters and the
+    terrain's angle filter, state and mean, against
+    `utils/filters.window_update` of the value the kernel pushed."""
+    case = _make_case("short", 6, 21, True, True, False)
+    (carry, sp, joy, pat), kw = case["inputs"], case["kw"]
+    carry = _short_windows(carry, *windows)
+    got = _emulated(emulated, carry, sp, joy, pat, _gf(torch.float64), kw)
+    want = trt._walking_pre_plain(carry, sp, joy, pat, _gf(torch.float64), **kw)
+    _hold(got, want, 1e-12, _fit_kappa(carry, want[4]), "short windows", fit_tol=1e-11)
+
+    _, cmd, goal, _, _, _, terr, ground_z = got
+    every = slice(None)
+    _hold_filter(carry.goal.vel_filter, goal.vel_filter, cmd.lin_vel_body_d, every)
+    # the position command's third value is the height over the ground
+    _hold_filter(carry.goal.pos_filter, goal.pos_filter,
+                 torch.cat([cmd.pos_body_d[..., :2], _filter_mean(goal.pos_filter)[..., 2:]], -1),
+                 every)
+    active = (kw["est_pos"][..., 2] - ground_z) > 0.1
+    assert bool(active.any())
+    old = carry.terrain_est.angle_filter
+    _hold_filter(old, terr.angle_filter, _filter_mean(terr.angle_filter), active)
+    angle = _filter_mean(terr.angle_filter)[active].clamp(-0.349, 0.349)
+    assert float((terr.terrain_angle[active] - angle).abs().max()) <= 1e-12 * float(
+        angle.abs().max())
+    for a, b in zip(old, terr.angle_filter):  # unchanged where not active
+        assert torch.equal(a[~active], b[~active])
+
+
+def _filter_mean(state):
+    """The masked mean of a filter's state."""
+    slots = torch.arange(state.buf.shape[-1])
+    return torch.sum(state.buf * (slots < state.count[..., None]), dim=-1) / state.count
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("layout", ["gap", "offset"])
+def test_emulated_kernel_copies_at_any_layout(emulated, layout, dtype):
+    """The window buffers with a gap between scenarios (a batch stride past
+    their length: the copies a scenario at a time), or one element off a
+    16-byte boundary with the outputs off it too (the copies an element at a
+    time): every output bit for bit as with the common layout."""
+    case = _make_case("layout", 19, 22, True, False, False)
+    (carry, sp, joy, pat), kw = _cast(case["inputs"], case["kw"], dtype)
+    table, lead, sizes = k10.check(carry, sp, joy, pat, _gf(dtype), **_geometry(carry, sp), **kw)
+    out, out_int, bufs = k10.new_outputs(lead, sizes, dtype, torch.device("cpu"))
+    _fill_launch(emulated, table, sizes, out, out_int, bufs, dtype)
+    want = [t.clone() for t in bufs]
+
+    def moved(t):
+        flat = t.reshape(t.shape[0], -1)
+        if layout == "gap":
+            big = torch.full((flat.shape[0], flat.shape[1] + 5), float("nan"), dtype=t.dtype)
+            big[:, :flat.shape[1]] = flat
+            return big[:, :flat.shape[1]].view(t.shape)
+        big = torch.full((flat.numel() + 1,), float("nan"), dtype=t.dtype)
+        big[1:] = flat.reshape(-1)
+        return big[1:].view(t.shape)
+
+    goal, terr = carry.goal, carry.terrain_est
+    carry = carry._replace(
+        goal=goal._replace(vel_filter=goal.vel_filter._replace(buf=moved(goal.vel_filter.buf)),
+                           pos_filter=goal.pos_filter._replace(buf=moved(goal.pos_filter.buf))),
+        terrain_est=terr._replace(angle_filter=terr.angle_filter._replace(
+            buf=moved(terr.angle_filter.buf))))
+    table, lead, sizes = k10.check(carry, sp, joy, pat, _gf(dtype), **_geometry(carry, sp), **kw)
+    stride = {name: bs for (name, _, _), (_, bs) in zip(k10.INPUTS, table)}
+    if layout == "gap":
+        assert stride["vel_buf"] == 3 * WINDOW + 5 and stride["angle_buf"] == WINDOW + 5
+    out, out_int, bufs = k10.new_outputs(lead, sizes, dtype, torch.device("cpu"))
+    if layout == "offset":
+        shifted = torch.empty(bufs[0].numel() + 1, dtype=dtype)[1:]
+        base = bufs[0].data_ptr()
+        out = {name: shifted[(v.data_ptr() - base) // v.element_size():][:v.numel()].view(v.shape)
+               for name, v in out.items()}
+        bufs = (shifted, bufs[1])
+    _fill_launch(emulated, table, sizes, out, out_int, bufs, dtype)
+    ints = {4: torch.int32, 8: torch.int64}
+    for g, w in zip(bufs, want):
+        assert torch.equal(g.view(ints[g.element_size()]), w.view(ints[w.element_size()]))
