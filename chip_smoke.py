@@ -8,6 +8,7 @@
     python3 chip_smoke.py --kernels-only --k8-baseline OLD.cu[,OTHER.cu]   # and K8 the same
     python3 chip_smoke.py --kernels-only --k9-baseline OLD.cu   # and K9 held bit for bit and timed beside another
     python3 chip_smoke.py --kernels-only --k10-baseline OLD.cu  # and K10 held bit for bit and timed beside another
+    python3 chip_smoke.py --kernels-only --k11-baseline OLD.cu[,OTHER.cu]  # and K11 the same
     python3 chip_smoke.py --hardware-only  # phases 1-2, 14 and 15: the hardware loop, the fleet over ranks, the CLI; no result line
     python3 chip_smoke.py --graphs-only    # phases 1-2 and 16: the entry points' CUDA graphs against eager; no result line
 
@@ -131,7 +132,11 @@ non-zero before the last line):
    rounding can set); then the f32 p50 tick at the
    bench's 0.3 m/s; one robot (B=1)
    under "auto" for 20 ticks, exactly 3 K4 (`assoc_backward`) launches a
-   tick and no K1; K10, the walking pre (`phase_walking_pre`), against its
+   tick and no K1; the reference's stairs gate (`phase_stairs_gate`,
+   tests/test_terrain_walking.py:43-52: one robot on stairs of 0.17 m rise
+   and 0.30 m run at 0.3 m/s, 2 AL x 4 iLQR, 400 ticks) through the graphed
+   per-scenario walking step, held in f64 (alive, x > 0.7 m, z > 0.55 m),
+   printed in f32; K10, the walking pre (`phase_walking_pre`), against its
    plain version on the states of 300-tick walks on flat, slope and stairs
    and of the estimated fleet, f32 and f64 at B from 4096 to 1, every
    element of every output equal, and timed at B=4096 and B=1; K11, the
@@ -341,8 +346,11 @@ launch plans swept; each build's SASS counted by opcode. For K10 also
 C interface (the parent's), each held bit for bit against the shipped build
 on every output at K10_CHECKED_B, f32 and f64, on the walks' states, and
 timed in turns at B = 1, 256 and 4096; their registers, stack, spill and
-blocks an SM, the shipped and the baseline SASS by opcode. It prints no
-result line.
+blocks an SM, the shipped and the baseline SASS by opcode. For K11 also
+(phase_k11_designs): the same, at one, two and four warps a block
+(-DK11_WARPS) and with --k11-baseline, on the walks', the estimated and the
+standing fleets' states, timed walking and standing. It prints no result
+line.
 """
 
 from __future__ import annotations
@@ -2755,6 +2763,74 @@ def phase_walking_one_robot(device):
     return p50, per
 
 
+# The reference's stairs gate (tests/test_terrain_walking.py:43-52): one
+# robot from `init_walking_scenario` on stairs of 0.17 m rise and 0.30 m run,
+# the per-scenario walking step at horizon 10, 2 AL x 4 iLQR, 0.3 m/s, 400
+# ticks; then alive, x > 0.7 m and z > 0.55 m
+STAIRS_TICKS = 400
+STAIRS_RISE, STAIRS_RUN, STAIRS_VELX = 0.17, 0.30, 0.3
+STAIRS_MIN_X, STAIRS_MIN_Z = 0.7, 0.55
+
+
+def phase_stairs_gate(device):
+    """The reference's stairs gate through the port's per-scenario walking
+    step (`make_walking_step`) replayed from a CUDA graph, STAIRS_TICKS
+    replays each launching K1, K2 and K8 al x ilqr times, K9's rollout once
+    and its pricing al + 1 times, K10 and K11 once: f64 must hold the gate's
+    bounds; the f32 walk's outcome is printed, not held. Returns {dtype
+    name: {"alive", "x", "z", "first_tick_down"}}."""
+    from quaternion_mpc_tpu_torch.control import quat_mpc
+    from quaternion_mpc_tpu_torch.runtime import step as rt
+    from quaternion_mpc_tpu_torch.sim import terrain as terrain_mod
+    from quaternion_mpc_tpu_torch.solver.problem import SolverOptions
+    from quaternion_mpc_tpu_torch.utils import config as cfg
+    from quaternion_mpc_tpu_torch.utils.graphs import Graphed
+
+    opts = SolverOptions(al_iterations=2, ilqr_iterations=4)
+    want = _per_replay(opts.al_iterations, opts.ilqr_iterations, k10=1, k11=1)
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype)[6:]
+        t0 = time.perf_counter()
+        wts = quat_mpc.weights_from_config(cfg.gazebo_go1_quat_mpc(), dtype=dtype, device=device)
+        tp = terrain_mod.make_terrain("stairs", stair_rise=STAIRS_RISE, stair_run=STAIRS_RUN,
+                                      dtype=dtype, device=device)
+        carry, sp = rt.init_walking_scenario(wts, dtype=dtype, terrain=tp, device=device)
+        joy = rt.neutral_joy(dtype, device)._replace(
+            velx=torch.full((), STAIRS_VELX, dtype=dtype, device=device))
+        graph = Graphed(rt.make_walking_step(HORIZON, opts), chain=True)
+        _hold_graph(graph.captured(carry, sp, joy), f"stairs gate {name}", want)
+        _zero_counts()
+        alive = []
+        for _ in range(STAIRS_TICKS):
+            carry, _ = graph(carry, sp, joy)
+            alive.append(carry.alive.clone())  # the chain's state is the graph's buffer
+        torch.cuda.synchronize()
+        c = _counts()
+        _check(all(c[k] == n * STAIRS_TICKS for k, n in want.items()),
+               f"stairs gate {name}: launches {c} over {STAIRS_TICKS} replays, expected {want} "
+               f"each")
+        _k2_count(f"stairs_gate_{name}_2x4_B1", c["line_search"], k8=c["knot_expansions"],
+                  k9=(c["rollout"], c["price"]), solves=STAIRS_TICKS)
+        _k10_count(f"graphed stairs gate {name}", c["walking_pre"])
+        _k11_count(f"graphed stairs gate {name}", c["srb_post"])
+        up = torch.stack(alive).cpu()
+        down = (~up).nonzero()
+        res = {"alive": bool(up[-1]), "x": carry.plant.pos[0].item(),
+               "z": carry.plant.pos[2].item(),
+               "first_tick_down": int(down[0, 0]) if len(down) else None}
+        out[name] = res
+        print(f"[stairs] {name}: the reference's stairs gate (rise {STAIRS_RISE} m, run "
+              f"{STAIRS_RUN} m, {STAIRS_VELX} m/s, 2x4, {STAIRS_TICKS} ticks) through the graphed "
+              f"per-scenario walking step: alive {res['alive']}, x {res['x']:.4f} m (> "
+              f"{STAIRS_MIN_X}), z {res['z']:.4f} m (> {STAIRS_MIN_Z}), first tick down "
+              f"{res['first_tick_down']}; {time.perf_counter() - t0:.1f} s")
+    f64 = out["float64"]
+    _check(f64["alive"] and f64["x"] > STAIRS_MIN_X and f64["z"] > STAIRS_MIN_Z,
+           f"the f64 walk fails the reference's stairs gate: {f64}")
+    return out
+
+
 def _no_sync_tick(tick, what, tag):
     """One tick (``tick()``) with every synchronising CUDA call an error."""
     torch.cuda.synchronize()
@@ -3134,15 +3210,20 @@ K10_WARPS_SWEPT = (1, 2, 4)
 
 def _k10_bits_differ(got, want) -> int:
     """Elements of two lists of buffers whose bits differ."""
-    ints = {4: torch.int32, 8: torch.int64}
+    ints = {1: torch.uint8, 4: torch.int32, 8: torch.int64}
     return sum(int((g.view(ints[g.element_size()]) != w.view(ints[w.element_size()])).sum())
                for g, w in zip(got, want))
 
 
-def _k10_sass(kbuild, lib):
-    """cuobjdump's SASS of a K10 build (the whole dump beside its library,
-    `.sass`): {dtype name: {"instructions": n, opcode: count, "calls": [the
-    CALL instructions' text]}}."""
+def _k10_tag(function):
+    """A K10 kernel's dtype name from its mangled name (None: not a kernel)."""
+    return ("float32" if "IfE" in function else "float64") if "kernel" in function else None
+
+
+def _k10_sass(kbuild, lib, tag=_k10_tag):
+    """cuobjdump's SASS of a build (the whole dump beside its library,
+    `.sass`): {tag(kernel): {"instructions": n, opcode: count, "calls": [the
+    CALL instructions' text]}} (K10's kernels by dtype unless told)."""
     cuobjdump = pathlib.Path(kbuild._nvcc()).with_name("cuobjdump")
     dump = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -3151,7 +3232,7 @@ def _k10_sass(kbuild, lib):
     for line in dump.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = ("float32" if "IfE" in m[1] else "float64") if "kernel" in m[1] else None
+            name = tag(m[1])
             if name:
                 kernels[name] = {"instructions": 0, "calls": []}
             continue
@@ -3373,22 +3454,43 @@ def _k11_differ(got, want, what):
     return differ, total, worst, worst_abs
 
 
+def _k11_launcher(lib, args, kw):
+    """fn() that launches ``lib``'s K11 once on these inputs into outputs
+    made once and returns its two output buffers (the state's dtype, bool);
+    the tables are made once too, so that fn() is the launch alone."""
+    from quaternion_mpc_tpu_torch.kernels import srb_post as k11
+
+    dtype = args[0].pos.dtype
+    table, lead, sizes = k11.check(*args, **kw)
+    out, alive, bufs = k11.new_outputs(lead, sizes, dtype, args[0].pos.device)
+
+    def fn():
+        err = k11.launch(lib, table, sizes, out, alive, dtype,
+                         torch.cuda.current_stream().cuda_stream)
+        _check(err == 0, f"K11 launch failed with CUDA error {err}")
+        return bufs
+
+    fn.table = table  # the copies live as long as fn
+    return fn
+
+
+def _k11_tag(function):
+    """"<dtype> <mode>[ push]" of one of K11's eight kernels from its mangled
+    name (its template arguments), or None."""
+    m = re.search(r"srb_post_kernelI([fd])Lb([01])ELb([01])E", function)
+    return None if m is None else (
+        f"{'float32' if m[1] == 'f' else 'float64'} "
+        f"{'walking' if m[2] == '1' else 'standing'}{' push' if m[3] == '1' else ''}")
+
+
 def _k11_registers(kbuild, lib):
     """{"<dtype> <mode>[ push]": [registers, stack bytes, spill store bytes,
     spill load bytes]} of a K11 build's eight kernels, as ptxas reported."""
-    import re
-
-    out = {}
-    for r in kbuild.ptxas_report(lib):
-        m = re.search(r"srb_post_kernelI([fd])Lb([01])ELb([01])E", r["name"])
-        if m:
-            tag = (f"{'float32' if m[1] == 'f' else 'float64'} "
-                   f"{'walking' if m[2] == '1' else 'standing'}{' push' if m[3] == '1' else ''}")
-            out[tag] = [r["registers"], r["stack"], r["stores"], r["loads"]]
-    return out
+    return {_k11_tag(r["name"]): [r["registers"], r["stack"], r["stores"], r["loads"]]
+            for r in kbuild.ptxas_report(lib) if _k11_tag(r["name"])}
 
 
-def phase_srb_post(device, walk_states):
+def phase_srb_post(device, walk_states, recs=None):
     """K11 (`kernels.srb_post`, csrc/srb_post.cu) against the plain version
     (`runtime.step._srb_post_plain`) on the card, f32 and f64 (the f32
     inputs cast), at K11_CHECKED_B (B=4096 to 1), on the inputs one eager
@@ -3399,14 +3501,15 @@ def phase_srb_post(device, walk_states):
     B=1 (the flat walk's last state; the pushed standing fleet's at B=4096)
     by CUDA events around a replayed graph of 50 launches beside its bound
     (`kernels.srb_post.work`), the plain version by events around eager
-    calls; registers, stack and spills as ptxas reported. Returns a dict for
-    the kernels line."""
+    calls; registers, stack and spills as ptxas reported. ``recs``: the
+    states `_k11_states` recorded, where already made. Returns a dict for the
+    kernels line."""
     from quaternion_mpc_tpu_torch.kernels import build as kbuild
     from quaternion_mpc_tpu_torch.kernels import srb_post as k11
     from quaternion_mpc_tpu_torch.runtime import step as rt
 
     t0 = time.perf_counter()
-    recs = _k11_states(device, walk_states)
+    recs = recs or _k11_states(device, walk_states)
     differ, worst = {}, {"float32": 0.0, "float64": 0.0}
     worst_abs = dict(worst)
     failed = {}
@@ -3455,6 +3558,101 @@ def phase_srb_post(device, walk_states):
     print(f"[K11] phase wall {time.perf_counter() - t0:.1f} s")
     return dict(differ=differ, worst=worst, worst_abs=worst_abs, timing=timing, registers=regs)
 
+
+
+# --kernels-only: K11 at other block shapes (-DK11_WARPS) and, with
+# --k11-baseline, another source of it with the same C interface (the
+# parent's, beside its own csrc/closed_loop.cuh), held bit for bit against
+# the shipped build and timed in turns with it at K11_TIMED_B.
+K11_TIMED_B = (1, 256, CLOSED_LOOP_B)
+K11_WARPS_SWEPT = (1, 2, 4)
+
+
+def phase_k11_designs(device, recs, baseline=None):
+    """--kernels-only: K11 built at each of K11_WARPS_SWEPT warps a block
+    and, given ``baseline``, that source (as K11 is built: its FLAGS); what
+    ptxas reported of each and the blocks of each resident on an SM; each
+    held bit for bit against the shipped build (every element of both output
+    buffers) at K11_CHECKED_B, f32 and f64, on `_k11_states`' states (``recs``:
+    the walks on flat, slope and stairs, the estimated fleet, the standing
+    fleet pushed and not); then timed in turns with it (shipped, the others,
+    then back, twice) by events around a replayed graph of 50 launches at
+    K11_TIMED_B, f32 and f64, walking (the flat walk's last state) and
+    standing (pushed), beside the bound (its share of the median)."""
+    from quaternion_mpc_tpu_torch.kernels import build as kbuild
+    from quaternion_mpc_tpu_torch.kernels import srb_post as k11
+
+    builds = {f"warps={w}": lambda w=w: kbuild.build(k11.SOURCE, k11.FLAGS + (f"-DK11_WARPS={w}",))
+              for w in K11_WARPS_SWEPT}
+    for source in (baseline or "").split(","):
+        if source:  # named by its directory
+            path = pathlib.Path(source).resolve()
+            builds[path.parent.name] = lambda path=path: kbuild.build(path, k11.FLAGS)
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        paths = {"shipped": k11.build(),
+                 **dict(zip(builds, pool.map(lambda build: build(), builds.values())))}
+    print(f"[K11] {len(builds)} more builds in {time.perf_counter() - t0:.1f} s")
+    libs = {"shipped": k11._lib(), **{name: k11.bind(paths[name]) for name in builds}}
+    for name, lib in libs.items():
+        blocks = "not reported by this source"
+        if hasattr(lib, "srb_post_occupancy"):
+            lib.srb_post_occupancy.argtypes = [ctypes.c_int] * 3
+            lib.srb_post_occupancy.restype = ctypes.c_int
+            blocks = {f"{dt} {mode}{' push' if ext else ''}": lib.srb_post_occupancy(f64, walk, ext)
+                      for dt, f64 in (("float32", 0), ("float64", 1))
+                      for mode, walk in (("walking", 1), ("standing", 0)) for ext in (0, 1)}
+        print(f"[K11] {name}: registers, stack, spill stores, spill loads "
+              f"{json.dumps(_k11_registers(kbuild, paths[name]))}; blocks an SM {blocks}")
+        for tag, ops in sorted(_k10_sass(kbuild, paths[name], _k11_tag).items()):
+            top = sorted(((n, op) for op, n in ops.items() if op not in ("instructions", "calls")),
+                         reverse=True)
+            print(f"[K11] SASS {name} {tag}: {ops['instructions']} instructions; "
+                  + ", ".join(f"{op} {n}" for n, op in top[:16]))
+
+    others = [name for name in libs if name != "shipped"]
+    differ = {name: [0, 0, 0, 0] for name in others}  # elements, of, launches off, launches
+    for what, rec in recs:
+        for dtype in (torch.float32, torch.float64):
+            for b in K11_CHECKED_B:
+                args, kw = _k11_case(rec, dtype, b)
+                want = [t.clone() for t in _k11_launcher(libs["shipped"], args, kw)()]
+                for name in others:
+                    n = _k10_bits_differ(_k11_launcher(libs[name], args, kw)(), want)
+                    d = differ[name]
+                    d[0] += n
+                    d[1] += sum(t.numel() for t in want)
+                    d[2] += n > 0
+                    d[3] += 1
+                    if n:
+                        print(f"[K11] bits: {name} {what} {str(dtype)[6:]} B={b}: {n} elements "
+                              f"differ")
+    torch.cuda.synchronize()
+    for name, (n, of, off, launches) in differ.items():
+        print(f"[K11] bits: {name} against the shipped build over {launches} launches (every "
+              f"output; K11_CHECKED_B, f32 and f64, the walks', the estimated and the standing "
+              f"fleets' states): {n} of {of:,} elements differ, in {off} launches")
+    _check(all(d[0] == 0 for d in differ.values()),
+           f"K11: a build's outputs differ from the shipped build's: {differ}")
+
+    named = dict(recs)
+    timed = {"walking": named[f"flat tick {K10_SNAPSHOTS[-1]}"],
+             "standing pushed": named[f"standing pushed tick {K11_STAND_TICKS}"]}
+    names = ["shipped", *others]
+    for mode, rec in timed.items():
+        for dtype in (torch.float32, torch.float64):
+            for b in K11_TIMED_B:
+                args, kw = _k11_case(rec, dtype, b)
+                fns = {name: _k11_launcher(libs[name], args, kw) for name in names}
+                times = {name: [] for name in names}
+                for name in (names + names[::-1]) * 2:
+                    times[name].append(_graph_time(fns[name], reps=50) * 1e3)
+                bound_ms, bound_by = _bound(k11.work(*args, **kw), dtype)
+                print(f"[K11] designs {mode} {str(dtype)[6:]} B={b}, in turns forward / "
+                      f"backward, twice (bound {bound_ms:.5f} ms by {bound_by}): " + "; ".join(
+                          f"{name} {' / '.join(f'{t:.4f}' for t in times[name])} ms "
+                          f"({100 * bound_ms / statistics.median(times[name]):.2f}% of the bound)"
+                          for name in names))
 
 
 # The estimated fleet (`make_fleet_estimated_step`): the bench's noise levels
@@ -5479,19 +5677,48 @@ _HW_PRINTED = ("mpc_rate_requested", "mpc_rate_used", "est_rate_used", "tick_wal
                "final_quat_w", "walk_distance_m", "upright")
 
 
+def _host_cpu_ticks():
+    """The host's CPU time so far by kind, in ticks of /proc/stat's first
+    line (user, nice, system, idle, iowait, irq, softirq, steal); None where
+    the file is not there."""
+    try:
+        with open("/proc/stat") as f:
+            return [int(v) for v in f.readline().split()[1:9]]
+    except (OSError, ValueError):
+        return None
+
+
+def _host_cpu_share(before):
+    """(busy, steal): the shares of the host's CPU time since ``before``
+    (`_host_cpu_ticks`) that ran some process and that the hypervisor gave
+    to another machine; (nan, nan) where /proc/stat cannot be read."""
+    after = _host_cpu_ticks()
+    if before is None or after is None:
+        return float("nan"), float("nan")
+    d = [b - a for a, b in zip(before, after)]
+    total = sum(d) or 1
+    return (total - d[3] - d[4] - d[7]) / total, d[7] / total
+
+
 def _hw_threaded(device, what, gate, **kw):
     """One threaded `run_hardware_loopback` on the card, its K1, K2 and K8
     launches held to al x ilqr a tick call each (the captures' warm-up calls
     and the timed ticks included: a replay counts the graph's own launches)
     and its K7 launches to one a peer period (the peer's capture and first
-    period included)."""
+    period included). The host's CPU shares over the run (busy, steal) are
+    printed beside it and given with a bound it misses: the loop's threads
+    keep the clock only when they get their cores."""
     from quaternion_mpc_tpu_torch.runtime import hardware_loop as hw
 
     t0 = time.perf_counter()
     _hw_zero_counts()
+    cpu0 = _host_cpu_ticks()
     s = hw.run_hardware_loopback(device=device, **kw)
+    busy, steal = _host_cpu_share(cpu0)
     k1, k7, k4, k2, k8, k9_roll, k9_price = _hw_counts()
     wall = time.perf_counter() - t0
+    host = (f"host CPUs over the run ({os.cpu_count()}): {busy:.3f} busy, {steal:.4f} stolen, "
+            f"load {' '.join(f'{v:.2f}' for v in os.getloadavg())}")
     warm = (hw.GRAPH_WARMUP + 4 + (4 if kw.get("async_mpc") else 0)
             + (8 if kw.get("async_pullers") else 0))
     n_walk = s["walk_ticks"]
@@ -5499,7 +5726,7 @@ def _hw_threaded(device, what, gate, **kw):
     print(f"[hardware] threaded {what}: " + ", ".join(
         f"{k} {s[k]:.4g}" if isinstance(s[k], float) else f"{k} {s[k]}" for k in _HW_PRINTED)
         + f"; K1 {k1}, K2 {k2}, K8 {k8}, K9 rollout {k9_roll} and pricing {k9_price} ({calls} "
-          f"tick calls), K7 {k7}; {wall:.1f} s", flush=True)
+          f"tick calls), K7 {k7}; {wall:.1f} s; {host}", flush=True)
     _check(k1 == 3 * calls and k2 == 3 * calls and k8 == 3 * calls and k4 == 0
            and k9_roll == calls and k9_price == 2 * calls,
            f"hardware threaded {what}: K1 {k1}, K2 {k2}, K8 {k8}, K9 ({k9_roll}, {k9_price}) "
@@ -5509,7 +5736,10 @@ def _hw_threaded(device, what, gate, **kw):
     _check(s["peer_cmds_served"] > 0 and s["servo_states"] > 0
            and s["mpc_rate_used"] <= s["mpc_rate_requested"], f"hardware threaded {what}: mechanism")
     if gate:
-        gate(s)
+        try:
+            gate(s)
+        except AssertionError as e:
+            raise AssertionError(f"{e}; {host}") from None
     return s, k1, k7, (k9_roll, k9_price)
 
 
@@ -6671,7 +6901,8 @@ def main(argv) -> int:
     baselines = dict(zip(argv[1::2], argv[2::2]))
     kernels_only = (argv[:1] == ["--kernels-only"] and len(argv) % 2 == 1
                     and set(baselines) <= {"--k7-baseline", "--k2-baseline", "--k8-baseline",
-                                           "--k1-baseline", "--k9-baseline", "--k10-baseline"}
+                                           "--k1-baseline", "--k9-baseline", "--k10-baseline",
+                                           "--k11-baseline"}
                     and len(baselines) == len(argv) // 2)
     workers = {**WORKERS, **ACT_WORKERS, **HW_WORKERS, "hardware-threaded": phase_hw_threaded,
                "hardware-peer-profile": _worker_hw_peer_profile,
@@ -6680,6 +6911,7 @@ def main(argv) -> int:
     if argv and not (kernels_only or worker or hardware_only or graphs_only):
         print("usage: chip_smoke.py [--kernels-only [--k1-baseline SOURCE] [--k7-baseline SOURCE] "
               "[--k2-baseline SOURCE] [--k9-baseline SOURCE] [--k10-baseline SOURCE] "
+              "[--k11-baseline SOURCE[,SOURCE...]] "
               "[--k8-baseline SOURCE[,SOURCE...]] "
               "| --hardware-only | --graphs-only | "
               "--worker "
@@ -6763,7 +6995,9 @@ def main(argv) -> int:
         phase_k9_designs(device, baselines.get("--k9-baseline"))
         walk_states = _k10_walk_states(device)
         phase_k10_designs(device, walk_states, baselines.get("--k10-baseline"))
-        phase_srb_post(device, walk_states)
+        k11_recs = _k11_states(device, walk_states)
+        phase_srb_post(device, walk_states, k11_recs)
+        phase_k11_designs(device, k11_recs, baselines.get("--k11-baseline"))
         phase_k2_designs(device, baselines.get("--k2-baseline"))
         if "--k8-baseline" in baselines:
             phase_k8_designs(device, baselines["--k8-baseline"])
@@ -6790,6 +7024,7 @@ def main(argv) -> int:
     stand_s, stand_per = phase_standing_fleet(device)          # 10
     walk_step, walk_carry, walk_sp, walk_joy, walk_s, walk_per = phase_walking_fleet(device)
     one_s, one_per = phase_walking_one_robot(device)
+    phase_stairs_gate(device)
     walk_states = _k10_walk_states(device)
     k10_res = phase_walking_pre(device, walk_states)
     k11_res = phase_srb_post(device, walk_states)

@@ -1,9 +1,10 @@
 """Where K1 (the fleet Riccati sweep), K4 (the associative-scan backward
 pass), K8 (the knot expansions), K9 (the open-loop rollout and the AL
-pricing) and K10 (the walking tick's pre) spend their clocks on the card.
+pricing), K10 (the walking tick's pre) and K11 (the SRB steps' post) spend
+their clocks on the card.
 
-    python3 k1_phase_clocks.py          # all five
-    python3 k1_phase_clocks.py k1       # or k4, k8, k9 or k10
+    python3 k1_phase_clocks.py          # all six
+    python3 k1_phase_clocks.py k1       # or k4, k8, k9, k10 or k11
 
 K1: builds `quaternion_mpc_tpu_torch/csrc/riccati_sweep.cu` a second time with
 -DK1_PHASE_CLOCKS, which makes lane 0 of the first scenario of the middle
@@ -52,6 +53,17 @@ pre (K10_STAGES), launches it on the flat walk's state after 300 ticks
 against the shipped build's, and prints the clocks of each stage, the
 shipped build's time there (events around a replayed graph of 50 launches)
 and its blocks resident on an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+
+K11: builds `csrc/srb_post.cu` with -DK11_PHASE_CLOCKS, which makes lane 0
+of the middle scenario's group stamp clock64() after each stage of the post
+(`k11_stages`: the loads, the inverse, the forces, each dynamics and
+midpoint of each substep, the mask, the metrics, the stores; each stage's
+values fenced before its stamp), launches it on the inputs one eager tick
+hands it from the flat walk's state after 300 ticks (walking) and from the
+pushed standing fleet's (two substeps; `chip_smoke._k11_states`) at
+K11_SHAPES, holds its outputs bit for bit against the shipped build's, and
+prints the clocks of each stage, the shipped build's time there and its
+blocks resident on an SM.
 
 A stamp itself costs clocks (two stamps back to back are printed), so read
 the phases against each other, not as absolute times; a kernel's time is
@@ -325,10 +337,81 @@ def k10_clocks(device) -> None:
               + ", ".join(f"{name} {int(p)}" for name, p in zip(K10_STAGES, parts)))
 
 
+# K11: (mode, dtype, B) on the flat walk's state after 300 ticks (walking)
+# and the pushed standing fleet's (standing, two substeps)
+K11_SHAPES = tuple((mode, dtype, batch) for mode in ("walking", "standing")
+                   for dtype in (torch.float32, torch.float64) for batch in (1, 256, 4096))
+
+
+def k11_stages(n_sub):
+    """The stamps of lane 0 of the middle scenario's group (csrc/srb_post.cu
+    K11_STAMP): what ends at each stamp after the first."""
+    chain = [f"substep {s}: {part}" for s in range(n_sub)
+             for part in ("dynamics 1", "dynamics 2", "the midpoint and the renormalisation")]
+    return ("the loads", "the inertia's inverse",
+            "the forces, their sums and moments, the joint velocities", *chain, "the mask",
+            "the metrics", "the stores")
+
+
+def k11_clocks(device) -> None:
+    import concurrent.futures
+
+    import chip_smoke
+    from quaternion_mpc_tpu_torch.kernels import build as kbuild
+    from quaternion_mpc_tpu_torch.kernels import expansions as k8
+    from quaternion_mpc_tpu_torch.kernels import line_search as k2
+    from quaternion_mpc_tpu_torch.kernels import riccati_sweep as rs
+    from quaternion_mpc_tpu_torch.kernels import rollout as k9
+    from quaternion_mpc_tpu_torch.kernels import srb_post as k11
+    from quaternion_mpc_tpu_torch.kernels import walking_pre as k10
+
+    # the walks' kernels and the instrumented build, one nvcc each, at once
+    with concurrent.futures.ThreadPoolExecutor() as pool:
+        stamped = pool.submit(kbuild.build, k11.SOURCE, k11.FLAGS + ("-DK11_PHASE_CLOCKS",))
+        list(pool.map(lambda m: m.build(), (rs, k2, k8, k9, k10, k11)))
+        lib = k11.bind(stamped.result())
+    lib.srb_post_clock_scenario.argtypes = [ctypes.c_longlong]
+    lib.srb_post_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.srb_post_clock_scenario.restype = lib.srb_post_clocks.restype = ctypes.c_int
+    shipped = k11._lib()
+    shipped.srb_post_occupancy.argtypes = [ctypes.c_int] * 3
+    shipped.srb_post_occupancy.restype = ctypes.c_int
+    print(f"[clocks] K11 shipped build: registers, stack, spill stores, spill loads "
+          f"{chip_smoke._k11_registers(kbuild, k11.build())}; stamped "
+          f"{chip_smoke._k11_registers(kbuild, stamped.result())}")
+    recs = dict(chip_smoke._k11_states(device, chip_smoke._k10_walk_states(device)))
+    rec = {"walking": recs[f"flat tick {chip_smoke.K10_SNAPSHOTS[-1]}"],
+           "standing": recs[f"standing pushed tick {chip_smoke.K11_STAND_TICKS}"]}
+    for mode, dtype, batch in K11_SHAPES:
+        args, kw = chip_smoke._k11_case(rec[mode], dtype, batch)
+        ours = chip_smoke._k11_launcher(shipped, args, kw)
+        want = [t.clone() for t in ours()]
+        fn = chip_smoke._k11_launcher(lib, args, kw)
+        if lib.srb_post_clock_scenario(batch // 2) != 0:
+            raise RuntimeError("setting the stamping scenario failed")
+        for _ in range(3):
+            got = fn()
+        torch.cuda.synchronize()
+        if chip_smoke._k10_bits_differ(got, want):
+            raise AssertionError("the instrumented build disagrees with the kernel")
+        stages = k11_stages(kw.get("n_sub", 1))
+        stamps = np.zeros(len(stages) + 1, dtype=np.int64)
+        if lib.srb_post_clocks(stamps.ctypes.data, len(stamps)) != 0:
+            raise RuntimeError("reading the stamps failed")
+        ms = chip_smoke._graph_time(ours, reps=50) * 1e3
+        blocks = shipped.srb_post_occupancy(int(dtype == torch.float64), int(mode == "walking"),
+                                            int(kw.get("ext") is not None))
+        parts = np.diff(stamps)
+        print(f"[clocks] K11 {mode} {str(dtype)[6:]} B={batch} (scenario {batch // 2}): "
+              f"{stamps[-1] - stamps[0]} clocks in all; the shipped build {ms:.4f} ms, "
+              f"{blocks} blocks an SM: "
+              + ", ".join(f"{name} {int(p)}" for name, p in zip(stages, parts)))
+
+
 def main(argv) -> int:
-    which = set(argv) or {"k1", "k4", "k8", "k9", "k10"}
-    if not which <= {"k1", "k4", "k8", "k9", "k10"}:
-        print("usage: k1_phase_clocks.py [k1] [k4] [k8] [k9] [k10]", file=sys.stderr)
+    which = set(argv) or {"k1", "k4", "k8", "k9", "k10", "k11"}
+    if not which <= {"k1", "k4", "k8", "k9", "k10", "k11"}:
+        print("usage: k1_phase_clocks.py [k1] [k4] [k8] [k9] [k10] [k11]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("k1_phase_clocks: no CUDA device", file=sys.stderr)
@@ -352,6 +435,8 @@ def main(argv) -> int:
         k9_clocks(device)
     if "k10" in which:
         k10_clocks(device)
+    if "k11" in which:
+        k11_clocks(device)
     if "k1" not in which:
         return 0
     lib = ctypes.CDLL(str(kbuild.build(rs.SOURCE, ("-DK1_PHASE_CLOCKS",))))

@@ -1,6 +1,7 @@
 // Device functions the closed loop's kernels share (K10, csrc/walking_pre.cu;
 // K11, csrc/srb_post.cu): each computes what a function of the port's plain
-// PyTorch computes, rounded as PyTorch rounds it on the card. Built
+// PyTorch computes, rounded as PyTorch rounds it on the card; and the
+// shuffles of their four-lane layout. Built
 // -fmad=false, a kernel writes out the fused multiply-adds PyTorch's kernels
 // and cuBLAS make (`fma_`); libdevice's functions are called as PyTorch's
 // kernels call them (the float overloads in f32); a Python number divides a
@@ -203,6 +204,42 @@ __device__ __forceinline__ T terrain_height(int kind, T grade, T rise, T run, T 
 template <typename T>
 __device__ __forceinline__ T rcp(double c) {
   return T(1.0 / c);
+}
+
+// The four-lane layout of K10 and K11: a scenario's group of GROUP lanes
+// (lane g its leg, or foot, g), SCENARIOS groups a warp.
+constexpr int GROUP = 4;
+constexpr int SCENARIOS = 32 / GROUP;  // a warp's
+#ifdef __CUDACC__
+constexpr unsigned FULL = 0xffffffffu;
+#else
+constexpr unsigned FULL = 0;
+#endif
+
+// Shuffles inside a scenario's group of GROUP lanes: from its lane j, and
+// down by `off` (a lane past the group's end keeps its own value).
+template <typename T>
+__device__ __forceinline__ T gshfl(T v, int j) {
+  return __shfl_sync(FULL, v, j, GROUP);
+}
+template <typename T>
+__device__ __forceinline__ T gshfl_down(T v, int off) {
+#ifdef __CUDACC__
+  return __shfl_down_sync(FULL, v, off, GROUP);
+#else
+  const int j = static_cast<int>(threadIdx.x) & (GROUP - 1);
+  return __shfl_sync(FULL, v, j + off < GROUP ? j + off : j, GROUP);
+#endif
+}
+
+// v[i] of a small array held in registers, for an index i known at run time
+// (a chain of selects: indexing it would put the array in local memory)
+template <int N, typename V>
+__device__ __forceinline__ V sel(const V (&v)[N], int i) {
+  V r = v[0];
+#pragma unroll
+  for (int k = 1; k < N; ++k) r = i == k ? v[k] : r;
+  return r;
 }
 
 }  // namespace

@@ -162,8 +162,6 @@ enum OutInt {
 
 constexpr int LEGS = 4;
 constexpr double PI = 3.141592653589793;
-constexpr int GROUP = 4;               // a scenario's lanes: lane g of its group runs leg g
-constexpr int SCENARIOS = 32 / GROUP;  // a warp's
 #ifndef K10_WARPS
 #define K10_WARPS 1  // a block's warps (chip_smoke.py --kernels-only times others)
 #endif
@@ -174,10 +172,8 @@ constexpr int MAX_WINDOW = 127;  // a window filter's slots: PyTorch's sum of th
 constexpr int PAD = 4;  // a warp's shared memory past its windows: their zero, 16 bytes aligned
 constexpr int SWING = 0, STANCE = 1;
 #ifdef __CUDACC__
-constexpr unsigned FULL = 0xffffffffu;
 #define K10_NOINLINE __device__ __noinline__
 #else
-constexpr unsigned FULL = 0;
 #define K10_NOINLINE
 #endif
 
@@ -315,32 +311,6 @@ __host__ __device__ inline int reduce_width(int n, long long rows) {
   const long long bw0 = d0 < 32 ? d0 : 32;
   const long long bh = d1 < 512 / bw0 ? d1 : 512 / bw0;
   return static_cast<int>(d0 < 512 / bh ? d0 : 512 / bh);
-}
-
-// Shuffles inside a scenario's group of GROUP lanes: from its lane j, and
-// down by `off` (a lane past the group's end keeps its own value).
-template <typename T>
-__device__ __forceinline__ T gshfl(T v, int j) {
-  return __shfl_sync(FULL, v, j, GROUP);
-}
-template <typename T>
-__device__ __forceinline__ T gshfl_down(T v, int off) {
-#ifdef __CUDACC__
-  return __shfl_down_sync(FULL, v, off, GROUP);
-#else
-  const int j = static_cast<int>(threadIdx.x) & (GROUP - 1);
-  return __shfl_sync(FULL, v, j + off < GROUP ? j + off : j, GROUP);
-#endif
-}
-
-// v[i] of a small array held in registers, for an index i known at run time
-// (a chain of selects: indexing it would put the array in local memory)
-template <int N, typename V>
-__device__ __forceinline__ V sel(const V (&v)[N], int i) {
-  V r = v[0];
-#pragma unroll
-  for (int k = 1; k < N; ++k) r = i == k ? v[k] : r;
-  return r;
 }
 
 // A window filter's masked sum Σ buf·(slot < count) over the staged new

@@ -11,16 +11,24 @@ Eager PyTorch runs the plain version (`runtime.step._srb_post_plain`) as
 ~360 launches a walking tick at B = 4096 (PERF.md).
 
 What bounds it on the H100: bytes (`work`: ~85 values read and ~55 written
-a scenario); below that, one scenario's serial chain (two evaluations of
-the dynamics a substep, each with its 3 x 3 inverse's divisions).
+a scenario); below that, one scenario's latency, as long at B = 1 as at
+4096: its loads' round trip, then the chain of two evaluations of the
+dynamics a substep, the mask's angles and the metric, 1,800-2,800
+instructions issued once each by one warp.
 
-Design (csrc/srb_post.cu): a thread a scenario, its state in registers.
-Built with -fmad=false (`FLAGS`), its operations round as the plain
-version's do on the card: libdevice's functions, PyTorch's reduction order
-for each sum and norm, torch.linalg.cross's fused terms, and cuBLAS's order
-for each einsum product at the call's batch size and type
-(`CUBLAS_ORDERS`), so that the outputs equal the plain version's bit for
-bit there (chip_smoke.py holds them so; PERF.md).
+Design (csrc/srb_post.cu): four lanes a scenario, eight a warp, a warp a
+block. Every input is loaded before the first store; lane f is foot f (its
+force, feet output and moment; the sums formed after shuffles), the chain
+runs in every lane with its independent divisions (the inertia's inverse,
+the velocity's rate, the renormalisation) and the mask's libdevice calls
+dealt over the lanes, and each einsum picks its order by selects. Built
+with -fmad=false (`FLAGS`), its operations round as the plain version's do
+on the card: libdevice's functions, PyTorch's reduction order for each sum
+and norm, torch.linalg.cross's fused terms, and cuBLAS's order for each
+einsum product at the call's batch size and type (`CUBLAS_ORDERS`), so that
+the outputs equal the plain version's bit for bit there (chip_smoke.py
+holds them so, and holds the parent design, a thread a scenario, bit for
+bit against this one with --kernels-only --k11-baseline; PERF.md).
 
 Every input is read in place through a (batch stride, element stride) pair
 (a batch stride 0 for a leaf every scenario shares: a flat terrain, an

@@ -23,8 +23,10 @@ product with a rounded reciprocal); with and without a push (`ExtWrench`);
 zero and emulated joint velocities; flat, slope and stairs worlds; a
 scenario already dead, one whose forces are not finite, one tipped past
 1 rad of roll, one under the floor (walking), one with a joint at 35 rad/s;
-B = 1, 7, 19 and one unbatched robot. Needs a host C++17 compiler (g++) for
-(b); without one those tests skip."""
+B = 1, 7, 19, 37 (five warps of eight scenarios, the last part-filled) and
+one unbatched robot; every output written whatever the buffers held before,
+at B = 1, 7, 19 and 37. Needs a host C++17 compiler (g++) for (b); without
+one those tests skip."""
 
 import pathlib
 import shutil
@@ -201,6 +203,9 @@ CASES = [
     ("stand_push_jv", 19, 5, False, 2, True, True),
     ("stand_three_substeps", 7, 6, False, 3, False, True),
     ("stand_unbatched", None, 7, False, 2, True, False),
+    # five warps of eight scenarios, the last with five
+    ("walk_warps_push_jv", 37, 14, True, 1, True, True),
+    ("stand_warps_push_jv", 37, 15, False, 2, True, True),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -333,16 +338,17 @@ def _cast(args, kw, dtype):
     return _map(lambda t: t.to(dtype) if t.is_floating_point() else t, args, kw)
 
 
-def _emulated(lib, args, kw, fill=True):
+def _emulated(lib, args, kw, fill=True, value=float("nan")):
     """The wrapper's launch with the emulated kernel in place of the card's;
-    the float outputs start as NaN so that anything left unwritten shows.
-    Returns (the outputs as `SrbPost`, the two buffers)."""
+    the float outputs start as ``value`` (NaN: anything left unwritten
+    shows) and alive as ``value`` != -7. Returns (the outputs as `SrbPost`,
+    the two buffers)."""
     dtype = args[0].pos.dtype
     table, lead, sizes = k11.check(*args, **kw)
     out, alive, bufs = k11.new_outputs(lead, sizes, dtype, torch.device("cpu"))
     if fill:
-        bufs[0].fill_(float("nan"))
-        bufs[1].fill_(True)
+        bufs[0].fill_(value)
+        bufs[1].fill_(value != -7)
     assert k11.launch(lib, table, sizes, out, alive, dtype) == 0
     return k11.assemble(out, alive, sizes["walking"]), bufs
 
@@ -413,6 +419,49 @@ def test_emulated_kernel_reads_any_layout(emulated, walking, dtype):
     for (name, g), (_, w) in zip(_leaves(got), _leaves(want)):
         assert torch.equal(g.contiguous().view(ints[g.element_size()]),
                            w.contiguous().view(ints[w.element_size()])), name
+
+    # batch-first leaves as views one element into a buffer: not 16 bytes
+    # aligned, read element by element
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    moved_ps = tplant.PlantState(*(offset(t) for t in ps))
+    moved_pp = pp._replace(foot_pos_body=offset(pp.foot_pos_body))
+    moved_kw = dict(common_kw, joint_vel=offset(kw["joint_vel"]))
+    if walking:
+        w = kw["walk"]
+        moved_kw["walk"] = w._replace(plan_contacts=offset(w.plan_contacts),
+                                      feet_world=offset(w.feet_world),
+                                      target_pos=offset(w.target_pos))
+    moved, _ = _emulated(emulated, (moved_ps, alive, grf, moved_pp._replace(
+        inertia=common_pp.inertia), h, th), moved_kw)
+    for (name, g), (_, w) in zip(_leaves(moved), _leaves(want)):
+        assert torch.equal(g.contiguous().view(ints[g.element_size()]),
+                           w.contiguous().view(ints[w.element_size()])), f"offset view: {name}"
+
+
+@pytest.mark.parametrize("B", [1, 7, 19, 37])
+@pytest.mark.parametrize("walking", [True, False], ids=["walking", "standing"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_emulated_kernel_writes_every_output(emulated, B, walking, dtype):
+    """The same outputs, bit for bit, whether the buffers held NaN and True
+    or −7 and False before the launch (B = 37: five warps, the last with
+    five scenarios), and no input written."""
+    case = _make_case("written", B, 20 + B, walking, 1 if walking else 2, True, True)
+    args, kw = _cast(case["args"], case["kw"], dtype)
+    before = [t.clone() for t in _inputs(args, kw)]
+    _, nan_fill = _emulated(emulated, args, kw)
+    _, minus_fill = _emulated(emulated, args, kw, value=-7.0)
+    for b, a in zip(before, _inputs(args, kw)):
+        assert torch.equal(torch.nan_to_num(b, nan=7.0), torch.nan_to_num(a, nan=7.0)), \
+            "the kernel wrote into an input"
+    ints = {4: torch.int32, 8: torch.int64, 1: torch.uint8}
+    for x, y in zip(nan_fill, minus_fill):
+        assert torch.equal(x.view(ints[x.element_size()]), y.view(ints[y.element_size()]))
 
 
 def test_emulated_kernel_takes_the_carry_of_one_robot(emulated):
